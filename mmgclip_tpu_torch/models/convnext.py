@@ -3,14 +3,23 @@
 NHWC throughout, parameters in the JAX layout (``weights.load_flax_tree``
 moves a JAX tree across by name): the stem and downsample convs are HWIO
 kernels run as patchify matmuls, and each stage keeps its blocks' parameters
-stacked ``[depth, ...]``.  With ``use_fused_blocks`` every residual block
-runs ``ops.fused_block.fused_convnext_block`` (the CUDA kernel on the card);
-otherwise the plain unfused math, which is the same function.  The stem,
-downsample and their LayerNorms are plain PyTorch, as they run outside any
-Pallas kernel in the JAX preset this ports.
+stacked ``[depth, ...]``.  The knobs and their gates are the JAX tower's:
 
-Not ported yet (ROADMAP.md): the masked ``valid_hw`` bucketed path, int8
-``quant``, the fused stem / downsample / standalone depthwise kernels.
+* ``use_fused_blocks``: every residual block runs
+  ``ops.fused_block.fused_convnext_block`` (``fused_convnext_block_int8``
+  with ``quant="int8"``), the CUDA kernel on the card;
+* ``fuse_stem`` / ``fuse_downsample`` (only with ``use_fused_blocks``): the
+  stem and the inter-stage LN + 2x2 conv run ``ops.fused_stem`` /
+  ``ops.fused_downsample``; the fused downsample only when ``valid_hw`` is
+  None (the per-image mask between its LN and conv is not in the kernel);
+* unfused: the plain block math, with ``int8_dot`` pointwise products under
+  ``quant="int8"`` and ``ops.depthwise_conv`` under ``use_pallas_dwconv``.
+
+``valid_hw`` ([n, 2] valid pixel (H, W) per image) runs the masked tower:
+images zero-padded onto a shared canvas give the features of an exact-shape
+run, because the pad region is re-zeroed at every spatial-mixing boundary
+(after the stem, between each downsample's LN and conv, after each block)
+and the pool averages only the valid cells of the ceil chain.
 """
 
 from __future__ import annotations
@@ -19,9 +28,14 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_block import fused_convnext_block, plain_convnext_block
+from ..ops.depthwise_conv import depthwise_conv7x7
+from ..ops.fused_block import EPS, fused_convnext_block, fused_convnext_block_int8, plain_convnext_block
+from ..ops.fused_downsample import fused_ln_downsample
+from ..ops.fused_stem import fused_stem, patchify
+from ..ops.quant import int8_dot
 from ._params import ParamGroup, dense, flax_layer_norm, lecun_normal, norm
 
 
@@ -33,10 +47,20 @@ class ConvNeXtConfig:
     layer_scale_init: float = 1e-6
     in_channels: int = 3
     dtype: torch.dtype = torch.float32
+    # route the unfused block's 7x7 depthwise conv through ops/depthwise_conv.py
+    use_pallas_dwconv: bool = False
     # run each residual block as ONE fused kernel (ops/fused_block.py)
     use_fused_blocks: bool = False
+    # "int8": the pointwise convs run as dynamically quantised int8 products
+    # with int32 accumulation (ops/quant.py; in-kernel with use_fused_blocks)
+    quant: Optional[str] = None
     # "exact" (torch-parity nn.GELU) or "tanh" (the tanh approximation)
     gelu: str = "exact"
+    # stem conv + LN as one kernel (ops/fused_stem.py); needs use_fused_blocks
+    fuse_stem: bool = False
+    # downsample LN + 2x2 conv as one kernel (ops/fused_downsample.py); needs
+    # use_fused_blocks, and applies only to unmasked (exact-shape) runs
+    fuse_downsample: bool = False
 
     @staticmethod
     def tiny(num_classes: int = 2) -> "ConvNeXtConfig":
@@ -54,26 +78,62 @@ def patchify_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     zero-padding the bottom/right to a multiple of s (``br_pad``: anchors the
     conv at (0, 0), like the JAX tower).  Computes in ``dtype``."""
     s = kernel.shape[0]
-    n, h, w, c = x.shape
-    x = nn.functional.pad(x, (0, 0, 0, (-w) % s, 0, (-h) % s))
-    hp, wp = x.shape[1] // s, x.shape[2] // s
-    patches = x.reshape(n, hp, s, wp, s, c).permute(0, 1, 3, 2, 4, 5).reshape(n, hp, wp, s * s * c)
-    return patches.to(dtype) @ kernel.reshape(s * s * c, -1).to(dtype) + bias.to(dtype)
+    patches = patchify(x, s)
+    return patches.to(dtype) @ kernel.reshape(patches.shape[-1], -1).to(dtype) + bias.to(dtype)
+
+
+def valid_mask(x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
+    """[n, H, W, 1] {0, 1} mask (x's dtype) of rows/cols below each image's
+    valid (h, w)."""
+    rows = torch.arange(x.shape[1], device=x.device)[None, :, None]
+    cols = torch.arange(x.shape[2], device=x.device)[None, None, :]
+    mask = (rows < valid_hw[:, 0, None, None]) & (cols < valid_hw[:, 1, None, None])
+    return mask[..., None].to(x.dtype)
+
+
+def ceil_div(valid_hw: torch.Tensor, s: int) -> torch.Tensor:
+    return -(-valid_hw // s)
+
+
+def unfused_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=False, quant=None,
+                  pallas_dwconv=False):
+    """The unfused block (the JAX ``ConvNeXtStage.block`` without fusion), in
+    x's dtype.  ``quant="int8"`` runs both pointwise products through
+    ``int8_dot`` (w1 / w2 then carry the fp32 parameters, as in JAX);
+    ``pallas_dwconv`` runs the depthwise conv through its kernel."""
+    if quant is None and not pallas_dwconv:
+        return plain_convnext_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=gelu_tanh)
+    dt = x.dtype
+    if pallas_dwconv:
+        y = depthwise_conv7x7(x, dwk, dwb)
+    else:
+        y = F.conv2d(x.permute(0, 3, 1, 2), dwk.permute(3, 2, 0, 1), padding=3,
+                     groups=x.shape[-1]).permute(0, 2, 3, 1) + dwb
+    yf = y.float()
+    mean = yf.mean(dim=-1, keepdim=True)
+    var = (yf - mean).square().mean(dim=-1, keepdim=True)
+    y = ((yf - mean) * torch.rsqrt(var + EPS) * ns + nb).to(dt)
+    approximate = "tanh" if gelu_tanh else "none"
+    if quant == "int8":
+        y = F.gelu(int8_dot(y, w1, out_dtype=dt) + b1, approximate=approximate)
+        y = int8_dot(y, w2, out_dtype=dt) + b2
+    else:
+        y = F.gelu(y @ w1 + b1, approximate=approximate) @ w2 + b2
+    return x + g * y
 
 
 class ConvNeXtStage(nn.Module):
     """``depth`` residual blocks with stacked parameters."""
 
-    def __init__(self, dim: int, depth: int, layer_scale_init: float, dtype: torch.dtype,
-                 use_fused_blocks: bool, gelu: str, generator: torch.Generator):
+    def __init__(self, dim: int, depth: int, config: ConvNeXtConfig, generator: torch.Generator):
         super().__init__()
-        if gelu not in ("exact", "tanh"):
-            raise ValueError(f"ConvNeXtConfig.gelu must be 'exact' or 'tanh', got {gelu!r}")
+        if config.gelu not in ("exact", "tanh"):
+            raise ValueError(f"ConvNeXtConfig.gelu must be 'exact' or 'tanh', got {config.gelu!r}")
+        if config.quant not in (None, "int8"):
+            raise ValueError(f"ConvNeXtConfig.quant must be None or 'int8', got {config.quant!r}")
         d = dim
         self.depth = depth
-        self.dtype = dtype
-        self.use_fused_blocks = use_fused_blocks
-        self.gelu_tanh = gelu == "tanh"
+        self.config = config
         self.dwconv_kernel = nn.Parameter(lecun_normal((depth, 7, 7, 1, d), 49, generator))
         self.dwconv_bias = nn.Parameter(torch.zeros(depth, d))
         self.norm_scale = nn.Parameter(torch.ones(depth, d))
@@ -82,7 +142,11 @@ class ConvNeXtStage(nn.Module):
         self.pwconv1_bias = nn.Parameter(torch.zeros(depth, 4 * d))
         self.pwconv2_kernel = nn.Parameter(lecun_normal((depth, 4 * d, d), 4 * d, generator))
         self.pwconv2_bias = nn.Parameter(torch.zeros(depth, d))
-        self.gamma = nn.Parameter(torch.full((depth, d), float(layer_scale_init)))
+        self.gamma = nn.Parameter(torch.full((depth, d), float(config.layer_scale_init)))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.config.dtype
 
     def block_args(self, i: int):
         """Block ``i``'s parameters as the block functions take them: the LN
@@ -94,11 +158,25 @@ class ConvNeXtStage(nn.Module):
                 self.pwconv2_kernel[i].to(dt), self.pwconv2_bias[i].to(dt),
                 self.gamma[i].to(dt))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        block = fused_convnext_block if self.use_fused_blocks else plain_convnext_block
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.config
+        tanh = cfg.gelu == "tanh"
         x = x.to(self.dtype)
         for i in range(self.depth):
-            x = block(x, *self.block_args(i), gelu_tanh=self.gelu_tanh)
+            args = self.block_args(i)
+            if cfg.use_fused_blocks:
+                block = fused_convnext_block_int8 if cfg.quant == "int8" else fused_convnext_block
+                x = block(x, *args, gelu_tanh=tanh)
+            else:
+                if cfg.quant == "int8":  # int8_dot quantises the fp32 parameters
+                    args = (*args[:4], self.pwconv1_kernel[i], args[5],
+                            self.pwconv2_kernel[i], *args[7:])
+                x = unfused_block(x, *args, gelu_tanh=tanh, quant=cfg.quant,
+                                  pallas_dwconv=cfg.use_pallas_dwconv)
+            if mask is not None:
+                # re-zero the pad so the next depthwise conv sees the zeros
+                # SAME padding gives an exact-shape run
+                x = x * mask
         return x
 
 
@@ -120,28 +198,58 @@ class ConvNeXt(nn.Module):
                 setattr(self, f"downsample_{stage}_conv",
                         ParamGroup(kernel=lecun_normal((2, 2, prev, dim), 4 * prev, g),
                                    bias=torch.zeros(dim)))
-            setattr(self, f"stage_{stage}",
-                    ConvNeXtStage(dim, depth, cfg.layer_scale_init, cfg.dtype,
-                                  cfg.use_fused_blocks, cfg.gelu, g))
+            setattr(self, f"stage_{stage}", ConvNeXtStage(dim, depth, cfg, g))
         self.head_norm = norm(cfg.dims[-1])
         self.head_fc = dense(cfg.dims[-1], cfg.num_classes, g)
 
-    def forward(self, x: torch.Tensor, pool: bool = True, classify: bool = False) -> torch.Tensor:
-        """x: [n, H, W, in_channels] NHWC -> pooled [n, dims[-1]] (or the
-        head's logits with ``classify``, or the feature map without ``pool``)."""
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, conv, ln = self.config, self.stem_conv, self.stem_norm
+        if cfg.use_fused_blocks and cfg.fuse_stem:
+            return fused_stem(x, conv.kernel.to(cfg.dtype), conv.bias.to(cfg.dtype),
+                              ln.scale.float(), ln.bias.float())
+        return flax_layer_norm(patchify_conv(x, conv.kernel, conv.bias, cfg.dtype), ln.scale, ln.bias)
+
+    def _downsample(self, stage: int, x: torch.Tensor, valid_hw) -> torch.Tensor:
         cfg = self.config
-        x = patchify_conv(x, self.stem_conv.kernel, self.stem_conv.bias, cfg.dtype)
-        x = flax_layer_norm(x, self.stem_norm.scale, self.stem_norm.bias)
+        ln = getattr(self, f"downsample_{stage}_norm")
+        conv = getattr(self, f"downsample_{stage}_conv")
+        if cfg.use_fused_blocks and cfg.fuse_downsample and valid_hw is None:
+            return fused_ln_downsample(x, ln.scale.float(), ln.bias.float(),
+                                       conv.kernel.to(cfg.dtype), conv.bias.to(cfg.dtype))
+        x = flax_layer_norm(x, ln.scale, ln.bias)
+        if valid_hw is not None:
+            # LN(0) is not 0: re-zero so the strided conv's edge window
+            # matches the exact-shape run
+            x = x * valid_mask(x, valid_hw)
+        return patchify_conv(x, conv.kernel, conv.bias, cfg.dtype)
+
+    def forward(self, x: torch.Tensor, pool: bool = True, classify: bool = False,
+                valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [n, H, W, in_channels] NHWC -> pooled [n, dims[-1]] (or the
+        head's logits with ``classify``, or the feature map without ``pool``).
+        ``valid_hw`` ([n, 2] integer, pixel space) runs the masked tower."""
+        cfg = self.config
+        x = self._stem(x)
+        if valid_hw is not None:
+            valid_hw = ceil_div(valid_hw, 4)  # the stride-4 stem, br-padded
+            x = x * valid_mask(x, valid_hw)
         for stage in range(len(cfg.depths)):
             if stage > 0:
-                ln = getattr(self, f"downsample_{stage}_norm")
-                conv = getattr(self, f"downsample_{stage}_conv")
-                x = flax_layer_norm(x, ln.scale, ln.bias)
-                x = patchify_conv(x, conv.kernel, conv.bias, cfg.dtype)
-            x = getattr(self, f"stage_{stage}")(x)
+                x = self._downsample(stage, x, valid_hw)
+                if valid_hw is not None:
+                    valid_hw = ceil_div(valid_hw, 2)
+                    x = x * valid_mask(x, valid_hw)
+            stage_mod = getattr(self, f"stage_{stage}")
+            mask = None if valid_hw is None else valid_mask(x, valid_hw).to(stage_mod.dtype)
+            x = stage_mod(x, mask)
         if not pool:
             return x
-        pooled = x.mean(dim=(1, 2))  # global average pool -> [n, dims[-1]]
+        if valid_hw is None:
+            pooled = x.mean(dim=(1, 2))  # global average pool -> [n, dims[-1]]
+        else:
+            # the sum and the count in fp32: a bf16 count is not exact
+            counts = (valid_hw[:, 0] * valid_hw[:, 1]).float()
+            pooled = (x.float().sum(dim=(1, 2)) / torch.clamp(counts, min=1.0)[:, None]).to(x.dtype)
         if not classify:
             return pooled
         h = flax_layer_norm(pooled, self.head_norm.scale, self.head_norm.bias)

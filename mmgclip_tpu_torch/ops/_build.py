@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` straight into its own shared
 library with a plain C interface (no PyTorch headers, so no ninja and a build
-of seconds), keyed on a hash of the source and the flags, under
+of seconds), keyed on a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, under
 ``mmgclip_tpu_torch/_build/``.  Builds happen at first use, never at import,
 and every source of a ``build_all`` call compiles in parallel.
 
@@ -25,7 +26,8 @@ from typing import Dict, Iterable, Tuple
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("fused_block.cu", "flash_attention.cu")
+SOURCES = ("fused_block.cu", "flash_attention.cu", "fused_stem.cu", "fused_downsample.cu",
+           "depthwise_conv.cu")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,8 +56,13 @@ def nvcc_path() -> str:
 
 
 def _library_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, keyed on the source, the shared headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC_DIR, name), "rb") as fh:
+            digest.update(fh.read())
+    digest = digest.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 
@@ -114,6 +121,22 @@ def load(source: str) -> ctypes.CDLL:
         if source not in _LIBS:
             _LIBS[source] = ctypes.CDLL(_library_path(source))
         return _LIBS[source]
+
+
+def load_typed(source: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """``load(source)`` with each launcher's ``argtypes`` set (every launcher
+    returns a ``cudaError_t`` as int) and ``mmg_cuda_error_string`` typed."""
+    lib = load(source)
+    with _LOCK:
+        if not getattr(lib, "_mmg_typed", False):
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.mmg_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.mmg_cuda_error_string.restype = ctypes.c_char_p
+            lib._mmg_typed = True
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -16,8 +16,8 @@ import math
 
 import torch
 
-from . import count_launch
-from ._build import check, load
+from . import count_launch, run_kernel
+from ._build import check, load_typed
 
 NEG_INF = -1e30
 _SOURCE = "flash_attention.cu"
@@ -37,19 +37,8 @@ def attention_reference(q, k, v, mask=None):
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
 
 
-def _library():
-    lib = load(_SOURCE)
-    if not getattr(lib, "_mmg_typed", False):
-        ptr = ctypes.c_void_p
-        lib.mmg_flash_attention.argtypes = [
-            ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ptr,
-        ]
-        lib.mmg_flash_attention.restype = ctypes.c_int
-        lib.mmg_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mmg_cuda_error_string.restype = ctypes.c_char_p
-        lib._mmg_typed = True
-    return lib
+_I, _P = ctypes.c_int, ctypes.c_void_p
+_SIGNATURES = {"mmg_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]}
 
 
 def prefix_lengths(mask, s: int):
@@ -79,7 +68,7 @@ def launch_flash_attention(q, k, v, lengths):
         raise ValueError(f"lengths must be int32 [{b}] on {q.device}")
     q, k, v, lengths = (t.contiguous() for t in (q, k, v, lengths))
     out = torch.empty_like(q)
-    lib = _library()
+    lib = load_typed(_SOURCE, _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         code = lib.mmg_flash_attention(
@@ -90,22 +79,10 @@ def launch_flash_attention(q, k, v, lengths):
     return out
 
 
-class _Flash(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, lengths):
-        ctx.save_for_backward(q, k, v, lengths)
-        return launch_flash_attention(q, k, v, lengths)
-
-    @staticmethod
-    def backward(ctx, grad):
-        q, k, v, lengths = ctx.saved_tensors
-        s = q.shape[2]
-        mask = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
-        inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        with torch.enable_grad():
-            out = attention_reference(*inputs, mask)
-            grads = torch.autograd.grad(out, inputs, grad)
-        return (*grads, None)
+def reference_with_lengths(q, k, v, lengths):
+    """``attention_reference`` under the prefix mask of ``lengths`` [b]."""
+    s = q.shape[2]
+    return attention_reference(q, k, v, torch.arange(s, device=q.device)[None, :] < lengths[:, None])
 
 
 def flash_attention(q, k, v, mask=None, lengths=None):
@@ -121,9 +98,8 @@ def flash_attention(q, k, v, mask=None, lengths=None):
         if mask is not None:
             raise ValueError("pass mask or lengths, not both")
         if not q.is_cuda:
-            mask = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
-            return attention_reference(q, k, v, mask)
-        return _Flash.apply(q, k, v, lengths)
+            return reference_with_lengths(q, k, v, lengths)
+        return run_kernel(launch_flash_attention, reference_with_lengths, q, k, v, lengths)
     if not q.is_cuda:
         return attention_reference(q, k, v, mask)
     if mask is None:
@@ -132,4 +108,4 @@ def flash_attention(q, k, v, mask=None, lengths=None):
         lengths = prefix_lengths(mask, s)
         if lengths is None:
             return attention_reference(q, k, v, mask)
-    return _Flash.apply(q, k, v, lengths)
+    return run_kernel(launch_flash_attention, reference_with_lengths, q, k, v, lengths)

@@ -11,8 +11,13 @@ kernel mirrors the JAX kernel's rounding points: fp32 taps and LayerNorm, the
 LN output rounded to the weight dtype before pw1, the GELU output rounded
 before pw2, fp32 accumulation.
 
-The gradient goes through the plain math (``torch.autograd.Function``), like
-the JAX ``custom_vjp``; serving never takes it.
+``fused_convnext_block_int8`` is the same block with int8 pointwise
+products (the JAX ``fused_convnext_block_int8``), launching the int8 route
+of the same source; see ``plain_convnext_block_int8`` for its partition of
+activation scales.
+
+The gradient goes through the plain math (``ops.run_kernel``), like the JAX
+``custom_vjp``; serving never takes it.
 """
 
 from __future__ import annotations
@@ -22,8 +27,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import count_launch
-from ._build import check, load
+from . import count_launch, run_kernel
+from ._build import check, load_typed
+from .quant import EPS as QUANT_EPS
+from .quant import int8_matmul, int8_quantize
 
 EPS = 1e-6
 _SOURCE = "fused_block.cu"
@@ -52,20 +59,11 @@ def plain_convnext_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, eps=EPS,
     return x + g.to(dt) * y
 
 
-def _library():
-    lib = load(_SOURCE)
-    if not getattr(lib, "_mmg_typed", False):
-        ptr = ctypes.c_void_p
-        lib.mmg_fused_block.argtypes = [
-            ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ptr,
-        ]
-        lib.mmg_fused_block.restype = ctypes.c_int
-        lib.mmg_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mmg_cuda_error_string.restype = ctypes.c_char_p
-        lib._mmg_typed = True
-    return lib
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_SIGNATURES = {
+    "mmg_fused_block": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P],
+    "mmg_fused_block_int8": [_I] + [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
+}
 
 
 def _check_args(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g):
@@ -99,7 +97,7 @@ def launch_fused_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=False):
     args = [t.contiguous() for t in (x, dwk, dwb, ns, nb, w1, b1, w2, b2, g)]
     out = torch.empty_like(args[0])
     n, h, w, c = x.shape
-    lib = _library()
+    lib = load_typed(_SOURCE, _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = lib.mmg_fused_block(
@@ -110,29 +108,100 @@ def launch_fused_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=False):
     return out
 
 
-class _FusedBlock(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh):
-        ctx.gelu_tanh = gelu_tanh
-        ctx.save_for_backward(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g)
-        return launch_fused_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh)
-
-    @staticmethod
-    def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = plain_convnext_block(*inputs, gelu_tanh=ctx.gelu_tanh)
-            grads = torch.autograd.grad(out, inputs, grad)
-        return (*grads, None)
-
-
 def fused_convnext_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=False):
     """One ConvNeXt block.  x: [n, H, W, C] NHWC, any H, W >= 1.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
     ``plain_convnext_block``.  ``ns``/``nb`` (the LN affine) stay fp32; every
-    other parameter is in x's dtype."""
+    other parameter is in x's dtype.  The gradient differentiates the plain
+    math, like the JAX ``custom_vjp``; serving never takes it."""
+    args = (x, dwk, dwb, ns, nb, w1, b1, w2, b2, g)
     if x.is_cuda:
-        return _FusedBlock.apply(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, bool(gelu_tanh))
-    return plain_convnext_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g,
-                                gelu_tanh=gelu_tanh)
+        return run_kernel(launch_fused_block, plain_convnext_block, *args,
+                          gelu_tanh=bool(gelu_tanh))
+    return plain_convnext_block(*args, gelu_tanh=gelu_tanh)
+
+
+# ---------------------------------------------------------------------------
+# The int8 block (counterpart of the JAX ``fused_convnext_block_int8``).
+
+INV_127 = 1.0 / 127.0
+
+
+def quantize_rows(v: torch.Tensor):
+    """One int8 scale per row (the last axis), the JAX kernel's formula
+    ``max(amax, 1e-8) * float32(1/127)``: -> (q int8, scale [..., 1] fp32)."""
+    scale = torch.clamp(v.abs().amax(dim=-1, keepdim=True), min=QUANT_EPS) * INV_127
+    return torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8), scale
+
+
+def quantize_weights(w1, w2):
+    """Per-output-channel int8 weights, as the JAX kernel's wrapper makes
+    them: -> (w1q [C, 4C], ws1 [4C], w2q [4C, C], ws2 [C])."""
+    w1q, ws1 = int8_quantize(w1, axis=0)
+    w2q, ws2 = int8_quantize(w2, axis=0)
+    return w1q, ws1.reshape(-1), w2q, ws2.reshape(-1)
+
+
+def plain_convnext_block_int8(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, eps=EPS,
+                              gelu_tanh=False):
+    """Plain PyTorch version of the int8 kernel, same partition of scales:
+    one per pixel for pw1's input (over C) and for pw2's input (over 4C).
+
+    The depthwise conv, LN, GELU and dequantised sums stay fp32 (the JAX int8
+    kernel rounds nothing to the tower dtype inside the block); products of
+    int8 values accumulate exactly in int32 (``ops.quant.int8_matmul``)."""
+    c = x.shape[-1]
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), dwk.float().permute(3, 2, 0, 1), padding=3,
+                 groups=c).permute(0, 2, 3, 1) + dwb.float()
+    mean = y.mean(dim=-1, keepdim=True)
+    var = (y - mean).square().mean(dim=-1, keepdim=True)
+    y = (y - mean) * torch.rsqrt(var + eps) * ns.float() + nb.float()
+    w1q, ws1, w2q, ws2 = quantize_weights(w1, w2)
+    q1, s1 = quantize_rows(y)
+    h = int8_matmul(q1, w1q).float() * (s1 * ws1) + b1.float()
+    h = F.gelu(h, approximate="tanh" if gelu_tanh else "none")
+    q2, s2 = quantize_rows(h)
+    out = (int8_matmul(q2, w2q).float() * (s2 * ws2) + b2.float()) * g.float()
+    return (x.float() + out).to(x.dtype)
+
+
+def launch_fused_block_int8(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=False):
+    """Launch the int8 CUDA kernel (CUDA tensors only; raises on any failure).
+
+    w1 / w2 arrive in x's dtype and are quantised here, per output channel,
+    and packed four input rows to an int32 word for ``__dp4a``."""
+    if not x.is_cuda:
+        raise ValueError("launch_fused_block_int8 needs CUDA tensors")
+    _check_args(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g)
+    n, h, w, c = x.shape
+    w1q, ws1, w2q, ws2 = quantize_weights(w1, w2)
+
+    def pack(q):  # [k, m] int8 -> [k/4, m] int32, word (i, j) = rows 4i..4i+3 of column j
+        k, m = q.shape
+        return q.reshape(k // 4, 4, m).permute(0, 2, 1).contiguous().view(torch.int32)[..., 0]
+
+    args = [t.contiguous() for t in (x, dwk, dwb, ns, nb)]
+    weights = [pack(w1q), ws1.contiguous(), b1.contiguous(), pack(w2q), ws2.contiguous(),
+               b2.contiguous(), g.contiguous()]
+    out = torch.empty_like(args[0])
+    lib = load_typed(_SOURCE, _SIGNATURES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        code = lib.mmg_fused_block_int8(
+            _DTYPES[x.dtype], *[t.data_ptr() for t in args + weights],
+            out.data_ptr(), n, h, w, c, EPS, int(bool(gelu_tanh)), stream)
+    check(lib, code, "fused_convnext_block_int8")
+    count_launch("fused_convnext_block_int8")
+    return out
+
+
+def fused_convnext_block_int8(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=False):
+    """One ConvNeXt block with int8 pointwise products (the arguments of
+    ``fused_convnext_block``).  CUDA tensors launch the int8 kernel (or
+    raise); CPU tensors run ``plain_convnext_block_int8``."""
+    args = (x, dwk, dwb, ns, nb, w1, b1, w2, b2, g)
+    if x.is_cuda:
+        return run_kernel(launch_fused_block_int8, plain_convnext_block_int8, *args,
+                          gelu_tanh=bool(gelu_tanh))
+    return plain_convnext_block_int8(*args, gelu_tanh=gelu_tanh)

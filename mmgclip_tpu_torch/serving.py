@@ -33,24 +33,14 @@ from .evaluation.report_cascade import (
     run_cascade_batch,
     unpack_decisions,
 )
-from .ingest.encode import build_encode_program, load_convnext_tower, parse_ingest_knobs
+from .ingest.encode import (build_encode_program, host_prepool, load_convnext_tower,
+                            parse_ingest_knobs, resolve_device)
 from .ingest.png_reader import decode_png
 from .models.clip import MMGCLIP, l2_normalize
 from .ops.fusion import fuse_views
 from .training.checkpoint import load_checkpoint
 from .utils.logging import logger
 from .weights import load_clip_params
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card, and raises when there is none: the port
-    runs on the CPU only when the caller asks for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' to run the port on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class InferenceEngine:
@@ -74,12 +64,19 @@ class InferenceEngine:
         self.model.to(self.device).eval()
 
         self.encode_module, self.cn_config = load_convnext_tower(config, device=self.device)
-        # the SAME ingest chain the feature store was built with
-        resize_hw, resize_method, resize_precision, window, prepool = parse_ingest_knobs(config)
+        # the SAME ingest chain the feature store was built with: online
+        # features must come from the input distribution the heads saw
+        (resize_hw, resize_method, resize_precision, window,
+         self._prepool) = parse_ingest_knobs(config)
+        if resize_hw or window:
+            logger.info(
+                f"Serving encode applies the configured ingest chain: "
+                f"resize={resize_hw} ({resize_method}), window={window}, "
+                f"prepool={self._prepool}.")
         self._encode = build_encode_program(
             self.encode_module, self.cn_config.in_channels, window=window,
             resize_hw=resize_hw, resize_method=resize_method,
-            resize_precision=resize_precision, prepool=prepool)
+            resize_precision=resize_precision, prepool=self._prepool)
         self._prompt_cache: Dict[tuple, torch.Tensor] = {}
         self._cascade_table = None
         self._decode_pool: Optional[ThreadPoolExecutor] = None  # lazy; see encode_paths
@@ -116,9 +113,16 @@ class InferenceEngine:
                 out[i] = vec
 
         for items in buckets.values():
-            # raw uint8/uint16 crosses the host link: 1-2 bytes per pixel
-            stack = torch.from_numpy(np.stack([px for _i, px in items])).to(self.device)
-            pending.append((items, self._encode(stack)))
+            stack = np.stack([px for _i, px in items])
+            if self._prepool:
+                # the prepooled chain the feature store was built with
+                sums, scale = host_prepool(stack, self._prepool)
+                result = self._encode(torch.from_numpy(sums).to(self.device),
+                                      native_hw=stack.shape[1:3], scale=scale)
+            else:
+                # raw uint8/uint16 crosses the host link: 1-2 bytes per pixel
+                result = self._encode(torch.from_numpy(stack).to(self.device))
+            pending.append((items, result))
             if len(pending) > 1:
                 drain_one()
         while pending:

@@ -295,11 +295,20 @@ def test_png_decode_matches_on_fixture_and_pil_files(tmp_path):
 
 
 def test_png_decode_rejects_colour(tmp_path):
+    """Colour files decode to the JAX reader's gray values (tests/test_torch_png.py
+    covers every colour type); only a colour type the standard lacks raises."""
     from PIL import Image
 
     path = str(tmp_path / "rgb.png")
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8), mode="RGB").save(path)
-    with pytest.raises(ValueError, match="grayscale"):
+    rgb = np.random.default_rng(4).integers(0, 256, (4, 5, 3), dtype=np.uint8)
+    Image.fromarray(rgb, mode="RGB").save(path)
+    out, ref = decode_png(path), jax_decode_png(path)
+    assert out.dtype == ref.dtype == np.uint8 and np.array_equal(out, ref)
+    data = bytearray(open(path, "rb").read())
+    data[25] = 5  # IHDR colour type 5 does not exist
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+    open(path, "wb").write(bytes(data))
+    with pytest.raises(ValueError, match="colour type 5"):
         decode_png(path)
 
 
