@@ -14,10 +14,20 @@ the full width of ConvNeXt-Tiny (+ BERT-base) with seeded random weights:
   host prepool, bucket rounding) and the unfused tower with the standalone
   depthwise kernel.
 
+Then it holds the ring all-gather (P logical ranks on the card) bit-equal to
+its plain version, drives the global contrastive losses through it against
+the single-device losses, and trains ``train_binary_class_clf`` with
+``mmgclip_tpu_torch.train.run`` at full BERT-base width, runs ``test()``,
+re-evaluates the stored run through ``evaluate_clip.main``, serves the
+trained run, and matches a reduced-width run on the card with the
+same run on the CPU.
+
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks what comes out, and times every kernel beside its plain
 version, its bound and (where one exists) the one PyTorch call that computes
-the same function, plus the encode programs, ``extract()`` and PNG decode.
+the same function, plus the encode programs, ``extract()``, PNG decode, the
+global loss, the text bank, the train step and ``test()``.  The times phase
+keeps its number, 11, and runs after phases 12-14.
 
 Imports nothing of JAX or of ``mmgclip_tpu``.  Exits non-zero, without the
 result line, when CUDA is unavailable or any phase fails.  The last line is
@@ -99,6 +109,33 @@ def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_ms(fn, calls: int = 20, repeats: int = 5) -> float:
+    """Median device time per call of ``calls`` back-to-back ``fn()`` calls.
+    A sleep kernel holds the stream while the host queues them all, so the
+    events see the device's work and its launch gaps, not the host's time
+    per call; the sleep doubles until the host finishes queueing first."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = 20_000_000, []
+    while len(times) < repeats:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        caught_up = start.query()  # the device reached the queue before the host filled it
+        end.record()
+        end.synchronize()
+        if caught_up:
+            if cycles >= 2_000_000_000:
+                raise RuntimeError("device_ms: the host cannot queue the calls ahead of the device")
+            cycles *= 2
+            continue
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -737,6 +774,328 @@ def timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_
     return out
 
 
+# ----------------------------------------------------------------------
+# the ring all-gather, the global contrastive loss and training
+RING_RANKS = (2, 4, 8)
+RING_CASES = (((32, 512), torch.float32), ((32, 512), torch.bfloat16),
+              ((256, 768), torch.float32), ((5, 100), torch.float32))
+RING_REPEATS = 50             # back-to-back calls, generation rising
+LOSS_REL_TOL = 1e-6           # global loss through the ring vs single-device loss, fp32
+GRAD_ABS_TOL = 1e-5           # their gradients per rank
+TRAIN_LOSS_REL_TOL = 1e-5     # reduced-width training, card vs CPU, per-epoch losses
+VIEWS = ("cl", "cr", "ml", "mr")
+
+
+def ring_shards(ranks, shape, dtype, device, rng):
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+            for _ in range(ranks)]
+
+
+def bit_equal(outs, refs):
+    return all(o.shape == r.shape and torch.equal(o.view(torch.uint8), r.view(torch.uint8))
+               for o, r in zip(outs, refs))
+
+
+def phase_ring_parity(device):
+    """Every rank's output bit-equal to ``ring_all_gather_plain``; 50 calls
+    back to back; a withheld signal raises instead of hanging."""
+    from mmgclip_tpu_torch.parallel import check_ring, launch_ring_all_gather, ring_all_gather_plain
+    from mmgclip_tpu_torch.parallel.collectives import _launch_ring
+
+    rng = np.random.default_rng(12)
+    worst = 0.0
+    for ranks in RING_RANKS:
+        for shape, dtype in RING_CASES:
+            shards = ring_shards(ranks, shape, dtype, device, rng)
+            outs = launch_ring_all_gather(shards)
+            refs = ring_all_gather_plain(shards)
+            worst = max([worst] + [(o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs)])
+            if not bit_equal(outs, refs):
+                raise AssertionError(f"ring P={ranks} {shape} {dtype}: not bit-equal to torch.cat")
+        log(f"    ring P={ranks}: {[f'{s} {str(d)[6:]}' for s, d in RING_CASES]} bit-equal to the plain version")
+    batches = [ring_shards(8, (32, 512), torch.float32, device, rng) for _ in range(RING_REPEATS)]
+    outs = [_launch_ring(shards) for shards in batches]
+    check_ring(device)
+    if not all(bit_equal(o, ring_all_gather_plain(s)) for o, s in zip(outs, batches)):
+        raise AssertionError("ring: a back-to-back call differs from the plain version")
+    log(f"    ring P=8 (32, 512) float32: {RING_REPEATS} calls back to back, no sync between, all bit-equal")
+    try:
+        _launch_ring(batches[0][:4], timeout_ns=20_000_000, drop_step=0)
+        check_ring(device)
+    except RuntimeError as exc:
+        log(f"    ring with step 0's signals withheld (20 ms timeout): raised {str(exc)[:70]}...")
+    else:
+        raise AssertionError("ring: a withheld signal did not raise")
+    if not bit_equal(launch_ring_all_gather(batches[1][:4]), ring_all_gather_plain(batches[1][:4])):
+        raise AssertionError("ring: the call after a timeout is wrong")
+    return worst
+
+
+def unit_rows(ranks, local, d, device, rng):
+    from mmgclip_tpu_torch.models.clip import l2_normalize
+
+    return [l2_normalize(t).requires_grad_() for t in ring_shards(ranks, (local, d), torch.float32,
+                                                                  device, rng)]
+
+
+def phase_global_loss(device):
+    """global_clip_loss / global_mmgclip_loss through the ring over 8 ranks x
+    32 rows x 512 against the single-device losses on the 256 rows."""
+    from mmgclip_tpu_torch.losses import clip_loss, mmgclip_loss
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.parallel import global_clip_loss, global_mmgclip_loss
+
+    rng = np.random.default_rng(13)
+    scale = torch.tensor(1 / 0.07, device=device)
+    launches = 0
+    for name, fn, ref_fn, kinds, expected in (
+            ("global_clip_loss", global_clip_loss,
+             lambda i, t: clip_loss(scale * i @ t.T, scale * t @ i.T)[0], 2, 2),
+            ("global_mmgclip_loss", global_mmgclip_loss,
+             lambda i, t, t2: mmgclip_loss(i, t, t2, scale)[0], 3, 4)):
+        shards = [unit_rows(8, 32, 512, device, rng) for _ in range(kinds)]
+        reset_launch_counts()
+        loss, _labels = fn(*shards, scale, use_ring_gather=True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check_counts(f"{name}, 8 ranks x 32 x 512, ring gathers", counts, {"ring_all_gather": expected})
+        launches += counts["ring_all_gather"]
+        loss.backward()
+        full = [torch.cat([t.detach() for t in s]).requires_grad_() for s in shards]
+        ref = ref_fn(*full)
+        ref.backward()
+        rel = abs(loss.item() - ref.item()) / abs(ref.item())
+        grad = max((torch.cat([t.grad for t in s]) - f.grad).abs().max().item()
+                   for s, f in zip(shards, full))
+        log(f"    {name}: ring {loss.item():.8f} vs single device {ref.item():.8f}: rel {rel:.3e} "
+            f"(tol {LOSS_REL_TOL:.0e}); gradients max_abs {grad:.3e} (tol {GRAD_ABS_TOL:.0e})")
+        if not (rel <= LOSS_REL_TOL and grad <= GRAD_ABS_TOL):
+            raise AssertionError(f"{name}: loss rel {rel}, gradient {grad}")
+    return launches
+
+
+def write_train_tree(root, n_per_class):
+    """An ImageLabelDataset tree: region JSONs, patient lists, placeholder
+    PNGs and class-separable 768-d .npy features (the tests' separable
+    fixture).  -> (base, annotated, lists, features)."""
+    base = os.path.join(root, "png_archive", "2D_100micron", "0")
+    annotated = os.path.join(root, "annotations")
+    lists = os.path.join(root, "lists")
+    features = os.path.join(root, "features")
+    for folder in ("02_benign", "02_stl"):
+        os.makedirs(os.path.join(annotated, folder))
+    os.makedirs(lists)
+    rng = np.random.default_rng(0)
+    direction = np.sign(np.arange(768) % 2 - 0.5).astype(np.float32)
+    tiny = np.zeros((8, 8), np.uint16)
+    patients = {True: [], False: []}
+    for benign in (True, False):
+        for i in range(n_per_class):
+            pid = f"{(2000000 if benign else 2100000) + i:08d}"
+            image_id = f"p{pid}02{VIEWS[i % 4]}"
+            png = os.path.join(base, pid[:2], pid, "st02", f"{image_id}.png")
+            os.makedirs(os.path.dirname(png), exist_ok=True)
+            write_png16(png, tiny)
+            if benign:
+                regions = ({"r0": {"is_mass": True, "properties": {"mass_margin": "Circumscribed",
+                                                                   "mass_shape": "Oval"}}}
+                           if i % 2 == 0 else {})
+            else:
+                regions = {"r0": {"is_malign": True, "is_mass": i % 3 != 0,
+                                  "is_architectural_distortion": i % 4 == 0,
+                                  "is_calcification_cluster": i % 3 == 0,
+                                  "properties": ({"mass_margin": "Spiculated", "mass_shape": "Irregular"}
+                                                 if i % 3 != 0 else {})}}
+            with open(os.path.join(annotated, "02_benign" if benign else "02_stl",
+                                   f"{image_id}.json"), "w") as fh:
+                json.dump({f"{image_id}_png": {"regions": regions}}, fh)
+            feats = rng.normal(size=(1, 768, 1, 1)).astype(np.float32)
+            feats[0, :, 0, 0] += (3.0 if benign else -3.0) * direction
+            path = os.path.join(features, "0", "02", pid[:2], pid, "st02", f"{image_id}.npy")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            np.save(path, feats)
+            patients[benign].append(pid)
+    for benign, name in ((True, "normal_patients.txt"), (False, "malignant_patients.txt")):
+        with open(os.path.join(lists, name), "w") as fh:
+            fh.write("patient_id\n" + "\n".join(patients[benign]) + "\n")
+    return base, annotated, lists, features
+
+
+def train_config(run_dir, tree, extra=()):
+    from mmgclip_tpu_torch.config import compose, save_snapshot
+
+    base, annotated, lists, features = tree
+    cfg = compose(os.path.join(REPO, "configs"), "train_binary_class_clf", [
+        f"dataset.config.base_dataset_path={base}",
+        f"dataset.config.annotated_dataset_path={annotated}",
+        f"dataset.config.lists_dataset_path={lists}",
+        f"base.features_export_dir={features}",
+        f"base.tensorboard_export_dir={run_dir}/runs",
+        "scheduler.config.epochs=3", *extra], run_dir=run_dir)
+    save_snapshot(cfg, run_dir)  # what compose_run writes: evaluate_clip and serving read it
+    return cfg
+
+
+def phase_training(device, tmp, smi):
+    """``mmgclip_tpu_torch.train.run`` at full width (BERT-base, 1xLinear512,
+    batch 32, AdamW + warmup-cosine, 3 epochs, then test()), the stored run
+    re-evaluated by ``evaluate_clip`` (its results.json equal to test()'s),
+    the trained run served, and the same training at reduced width on the card and the CPU."""
+    from mmgclip_tpu_torch.evaluate_clip import main as evaluate_main
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.serve import handle
+    from mmgclip_tpu_torch.serving import InferenceEngine
+    from mmgclip_tpu_torch.train import run
+    from mmgclip_tpu_torch.utils.tb import read_scalars
+
+    tree = write_train_tree(os.path.join(tmp, "train_tree"), 256)
+    run_dir = os.path.join(tmp, "train_run")
+    cfg = train_config(run_dir, tree)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    experiment = run(cfg, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_counts("training + test() (the JAX trainer's path launches no kernel)", counts, {})
+    text = experiment.model.bert_config
+    scalars = read_scalars(cfg.base.tensorboard_export_dir)
+    train_loss, val_loss = scalars["loss/train"], scalars["loss/val"]
+    log(f"    BERT {text.hidden_size}x{text.num_hidden_layers}x{text.num_attention_heads} "
+        f"({text.intermediate_size}), {cfg.projection.config.projection_name} "
+        f"{cfg.projection.config.output_projection_dimension}, batch {cfg.dataloader.train.batch_size}: "
+        f"train loss {train_loss}, val loss {val_loss}, val AUC malig {scalars.get('auc/val/malig')}")
+    for name in (experiment.ckp_path, os.path.join(cfg.base.results_export_dir, "results.json"),
+                 os.path.join(cfg.base.results_export_dir, "results.txt")):
+        if not os.path.isfile(name):
+            raise AssertionError(f"training did not write {name}")
+    if not (np.isfinite(train_loss).all() and np.isfinite(val_loss).all() and len(train_loss) == 3):
+        raise AssertionError(f"epoch losses {train_loss} / {val_loss}")
+    if not train_loss[-1] < train_loss[0]:
+        raise AssertionError(f"train loss did not fall on separable data: {train_loss}")
+    with open(os.path.join(cfg.base.results_export_dir, "results.json")) as fh:
+        tested = json.load(fh)
+    results = tested["BenignMalignantDatasetLabels"]["zeroshot_label_prompt"]
+    log(f"    test(): accuracy {results['accuracy']}, AUC CI mean {results.get('auc_ci_mean')} "
+        f"[{results.get('auc_ci_lower')}, {results.get('auc_ci_higher')}]")
+
+    # main path step 3: re-evaluate the stored run through the entry point, on the card
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    evaluate_main(["--experiment_path", run_dir, "--run_name", "replay"])
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    check_counts("evaluate_clip (the Evaluator on the stored checkpoint)", launch_counts(), {})
+    with open(os.path.join(run_dir, "replay", "results.json")) as fh:
+        replayed = json.load(fh)
+    if replayed != tested:
+        raise AssertionError(f"evaluate_clip's results.json differs from test()'s: {replayed} vs {tested}")
+    log(f"    evaluate_clip --experiment_path <run> --run_name replay (on the card): results.json "
+        f"equal to test()'s, {replay_s:.3f} s (host clock)")
+
+    engine = InferenceEngine.from_experiment(run_dir)
+    base = experiment.train_dataloader.dataset
+    while hasattr(base, "dataset"):
+        base = base.dataset
+    rows = [0, 1, len(base) - 2, len(base) - 1]
+    feats = base._features[rows].reshape(len(rows), -1).astype("<f4")
+    prompts = ["Finding suggesting benign.", "Finding suggesting malignant."]
+    response = handle(engine, {"op": "classify", "features_b64": base64.b64encode(feats.tobytes()).decode(),
+                               "features_rows": len(rows), "class_list": prompts})
+    engine.close()
+    probs = np.asarray(response["classes_similarities"])
+    if probs.shape != (len(rows), 2) or not np.isfinite(probs).all() or \
+            not np.allclose(probs.sum(1), 1.0, atol=1e-5):
+        raise AssertionError(f"classify from the trained run: {response}")
+    log(f"    the trained run served (InferenceEngine.from_experiment on the card): classify of "
+        f"{[base.rows[i]['image_label'] for i in rows]} -> argmax {response['similarities_argmax']}")
+
+    steps = experiment.timings["epoch_steps"]
+    device_ms = experiment.timings["epoch_device_ms"]
+    bs = cfg.dataloader.train.batch_size
+    per_step = [ms / n for ms, n in zip(device_ms, steps)]
+    times = {"bank_s": experiment.timings["bank_s"], "test_s": experiment.timings["test_s"],
+             "step_ms": per_step[-1], "samples_per_s": 1e3 * bs / per_step[-1], "wall_s": wall}
+    log(f"    times ({smi}): text bank {times['bank_s']:.3f} s for {len(base)} rows (host clock); "
+        f"train step {', '.join(f'{v:.3f}' for v in per_step)} ms per epoch (CUDA events over the "
+        f"fused epoch / {steps[0]} steps) = {times['samples_per_s']:.0f} samples/s in the last epoch; "
+        f"test() {times['test_s']:.3f} s; run() {wall:.1f} s (host clock)")
+
+    small = write_train_tree(os.path.join(tmp, "small_tree"), 32)
+    extra = ["networks.text_encoder.config={hidden_size: 64, num_hidden_layers: 2, "
+             "num_attention_heads: 4, intermediate_size: 128}",
+             "networks.dropout.config.dropout=0.0", "dataloader.train.batch_size=8",
+             "dataloader.valid.batch_size=4", "dataloader.test.batch_size=4"]
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        small_cfg = train_config(os.path.join(tmp, f"small_{dev}"), small, extra)
+        run(small_cfg, device=dev)
+        got = read_scalars(small_cfg.base.tensorboard_export_dir)
+        losses[dev] = np.asarray(got["loss/train"] + got["loss/val"])
+    rel = np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])
+    log(f"    reduced width (BERT 64x2, 64 images, dropout 0, TF32 off): card {losses['cuda'].tolist()} "
+        f"vs CPU {losses['cpu'].tolist()} (train then val per epoch): max rel {rel.max():.3e} "
+        f"(tol {TRAIN_LOSS_REL_TOL:.0e})")
+    if not (np.isfinite(rel).all() and rel.max() <= TRAIN_LOSS_REL_TOL):
+        raise AssertionError(f"card vs CPU training losses differ by {rel}")
+    return times
+
+
+def timing_ring(device, peaks, smi, launches, max_err):
+    """The ring per (P, shape, dtype) beside its bound, its plain version and
+    the library pair (torch.cat, then a copy into each output), all as device
+    time per call of back-to-back calls (``device_ms``); the kernel through
+    ``_launch_ring``, the call ``ring_all_gather_diff`` makes in the global
+    losses.  Then the global loss forward + backward with the ring and with
+    the plain gather (CUDA events around each call, host time included)."""
+    from mmgclip_tpu_torch.parallel import (global_clip_loss, global_mmgclip_loss,
+                                            launch_ring_all_gather, ring_all_gather_plain)
+    from mmgclip_tpu_torch.parallel.collectives import _launch_ring
+
+    rng = np.random.default_rng(14)
+    entry = None
+    for ranks in RING_RANKS:
+        for shape, dtype in RING_CASES:
+            shards = ring_shards(ranks, shape, dtype, device, rng)
+            outs = [torch.empty((ranks * shape[0], *shape[1:]), dtype=dtype, device=device)
+                    for _ in range(ranks)]
+
+            def library():
+                full = torch.cat(shards)
+                for out in outs:
+                    out.copy_(full)
+
+            ms = device_ms(lambda: _launch_ring(shards))
+            plain = device_ms(lambda: ring_all_gather_plain(shards))
+            lib = device_ms(library)
+            host = time_ms(lambda: launch_ring_all_gather(shards))
+            # each shard read once, each of the P outputs of P chunks written once
+            moved = (ranks * ranks + ranks) * shards[0].numel() * shards[0].element_size()
+            bms = moved / peaks["bytes"] * 1e3
+            log(f"    ring_all_gather P={ranks} {shape} {str(dtype)[6:]}: kernel {ms:.5f} ms, plain "
+                f"{plain:.5f} ms, library (cat + {ranks} copies) {lib:.5f} ms, bound {bms:.5f} ms "
+                f"(bytes); one checked call {host:.4f} ms with its host time ({smi})")
+            if (ranks, shape, dtype) == (8, (32, 512), torch.float32):
+                entry = {"name": "ring_all_gather", "route": "cuda",
+                         "source": "mmgclip_tpu_torch/csrc/ring_all_gather.cu",
+                         "replaces": "mmgclip_tpu/parallel/collectives.py:189", "launches": launches,
+                         "max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                         "bound_by": "bytes", "library_ms": lib,
+                         "work": "8 ranks x [32, 512] fp32, the global loss's gather"}
+    scale = torch.tensor(1 / 0.07, device=device)
+    for name, fn, kinds in (("global_clip_loss", global_clip_loss, 2),
+                            ("global_mmgclip_loss", global_mmgclip_loss, 3)):
+        shards = [unit_rows(8, 32, 512, device, rng) for _ in range(kinds)]
+        for ring in (True, False):
+            def step():
+                loss, _ = fn(*shards, scale, use_ring_gather=ring)
+                loss.backward()
+
+            log(f"    {name} forward + backward, 8 ranks x 32 x 512 fp32, "
+                f"{'ring' if ring else 'plain'} gather: {time_ms(step):.4f} ms ({smi})")
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this smoke runs only on a CUDA card")
@@ -930,11 +1289,24 @@ def main() -> int:
         log("[10] unfused tower with the depthwise kernel (use_pallas_dwconv)")
         dw_towers, dw_pixels, dw_counts = phase_depthwise_tower(device, engine)
 
-        # 11. times -----------------------------------------------------------------
+        # 12. the ring all-gather ------------------------------------------------------
+        log("[12] ring_all_gather vs ring_all_gather_plain (P logical ranks on one card)")
+        ring_err = phase_ring_parity(device)
+
+        # 13. the global contrastive loss through the ring -------------------------------
+        log("[13] global contrastive losses with use_ring_gather=True vs the single-device losses")
+        ring_launches = phase_global_loss(device)
+
+        # 14. training and test() ------------------------------------------------------
+        log("[14] training: mmgclip_tpu_torch.train.run (train_binary_class_clf), then test()")
+        phase_training(device, tmp.name, smi)
+
+        # 11. times (after 12-14) --------------------------------------------------------
         log("[11] times (CUDA events, median of 10 after 3 warmup unless stated)")
         kernels = timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts,
                                block_err, flash_err)
         kernels += timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts)
+        kernels.append(timing_ring(device, peaks, smi, ring_launches, ring_err))
         timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_towers,
                         dw_pixels, tree)
         enc_times = {}

@@ -1,6 +1,5 @@
 """Entry-point helpers: Hydra-style CLI parsing and run-dir management
-(port of mmgclip_tpu/cli.py; writing the ``.hydra`` snapshot waits for the
-entry points that read it back)."""
+(port of mmgclip_tpu/cli.py)."""
 
 from __future__ import annotations
 
@@ -9,7 +8,7 @@ import os
 import sys
 from typing import List, Optional, Tuple
 
-from .config import Config, compose
+from .config import Config, compose, save_snapshot
 
 DEFAULT_CONFIG_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
@@ -27,9 +26,13 @@ def parse_hydra_args(default_config: str,
     return args.config_dir, args.config_name, args.overrides
 
 
-def compose_run(default_config: str, argv: Optional[List[str]] = None) -> Config:
-    """Compose the config and create its run dir (no snapshot)."""
+def compose_run(default_config: str, argv: Optional[List[str]] = None,
+                snapshot: bool = True) -> Config:
+    """Compose the config, create the run dir, snapshot to ``.hydra/``."""
     config_dir, config_name, overrides = parse_hydra_args(default_config, argv)
     cfg = compose(config_dir, config_name, overrides)
-    os.makedirs(cfg.hydra.run.dir, exist_ok=True)
+    run_dir = cfg.hydra.run.dir
+    os.makedirs(run_dir, exist_ok=True)
+    if snapshot:
+        save_snapshot(cfg, run_dir)
     return cfg

@@ -1,4 +1,4 @@
-from .compose import Config, compose, load_config, recompose, resolve
+from .compose import Config, compose, load_config, recompose, resolve, save_snapshot
 from .registry import DATASETS, EXPERIMENTS, LOSSES, NETWORKS, PROJECTIONS, Registry
 
 __all__ = [
@@ -7,6 +7,7 @@ __all__ = [
     "load_config",
     "recompose",
     "resolve",
+    "save_snapshot",
     "Registry",
     "NETWORKS",
     "PROJECTIONS",

@@ -16,6 +16,7 @@ import os
 import time
 from typing import Any, Dict, Iterable, List, Optional
 
+from .yaml_lite import dump as _yaml_dump
 from .yaml_lite import load as _yaml_load_text
 
 
@@ -29,6 +30,7 @@ __all__ = [
     "compose",
     "load_config",
     "resolve",
+    "save_snapshot",
     "recompose",
 ]
 
@@ -264,6 +266,17 @@ def _interp_string(text: str, cfg: Config, stamp, run_dir: str) -> Any:
 def load_config(config_dir: str, config_name: str, overrides: Optional[List[str]] = None) -> Config:
     """Alias for :func:`compose` matching entry-point wording."""
     return compose(config_dir, config_name, overrides)
+
+
+def save_snapshot(cfg: Config, run_dir: str) -> str:
+    """Write `<run_dir>/.hydra/config.yaml` (reference run-dir contract); the
+    JAX package's ``recompose`` (PyYAML) reads it back to the same config."""
+    hydra_dir = os.path.join(run_dir, ".hydra")
+    os.makedirs(hydra_dir, exist_ok=True)
+    path = os.path.join(hydra_dir, "config.yaml")
+    with open(path, "w") as fh:
+        fh.write(_yaml_dump(cfg.to_dict()))
+    return path
 
 
 def recompose(experiment_path: str) -> Config:

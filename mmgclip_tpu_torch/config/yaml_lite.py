@@ -9,10 +9,12 @@ keys, comments, plain scalars folded over several lines, and PyYAML's
 implicit types: null, YAML 1.1 booleans, ints, and floats under the YAML 1.2
 rule of ``mmgclip_tpu/config/compose.py`` (``5e-5`` is a float).  Anchors,
 tags, block scalars (``|``, ``>``) and multi-document streams raise.
+``dump`` writes a config back (the run snapshot) in that dialect.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from typing import Any, List, Tuple
 
@@ -311,3 +313,76 @@ def load(text: str) -> Any:
 def load_file(path: str) -> Any:
     with open(path, "r", encoding="utf-8") as fh:
         return load(fh.read())
+
+
+# ----------------------------------------------------------------------
+# writer: block mappings, flow lists of scalars, strings double-quoted, in
+# a form both this reader and PyYAML's safe loader read back to equal data
+
+_PLAIN_KEY = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-/]*$")
+
+
+def _dump_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if value is True or value is False:
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        if "e" in text and "." not in text:  # YAML 1.1 floats need the dot: 1.0e-20
+            text = text.replace("e", ".0e", 1)
+        return text if "." in text else text + ".0"
+    if isinstance(value, str):
+        return json.dumps(value)  # JSON escapes are YAML double-quoted escapes
+    raise YamlError(f"cannot dump {type(value).__name__}")
+
+
+def _dump_key(key: Any) -> str:
+    text = str(key)
+    return text if _PLAIN_KEY.match(text) and plain_scalar(text) == text else json.dumps(text)
+
+
+def _dump_block(node: Any, indent: int, lines: List[str]) -> None:
+    pad = " " * indent
+    if isinstance(node, dict):
+        for key, value in node.items():
+            head = f"{pad}{_dump_key(key)}:"
+            if isinstance(value, (dict, list)) and value and not _flat_list(value):
+                lines.append(head)
+                _dump_block(value, indent + 2, lines)
+            else:
+                lines.append(f"{head} {_dump_inline(value)}")
+    else:
+        for item in node:
+            if isinstance(item, (dict, list)) and item and not _flat_list(item):
+                lines.append(f"{pad}-")
+                _dump_block(item, indent + 2, lines)
+            else:
+                lines.append(f"{pad}- {_dump_inline(item)}")
+
+
+def _flat_list(value: Any) -> bool:
+    return isinstance(value, list) and not any(isinstance(v, (dict, list)) for v in value)
+
+
+def _dump_inline(value: Any) -> str:
+    if isinstance(value, dict):
+        return "{}"
+    if isinstance(value, list):
+        return "[" + ", ".join(_dump_scalar(v) for v in value) + "]"
+    return _dump_scalar(value)
+
+
+def dump(data: Any) -> str:
+    """A mapping of mappings, lists and scalars -> YAML text."""
+    if not isinstance(data, dict):
+        raise YamlError("dump takes a mapping")
+    lines: List[str] = []
+    _dump_block(data, 0, lines)
+    return "\n".join(lines) + "\n"

@@ -1,7 +1,8 @@
-// Helpers shared by the ConvNeXt kernels (fused_block.cu, fused_stem.cu,
-// fused_downsample.cu, depthwise_conv.cu).  Each source still builds into its
-// own shared library; ops/_build.py hashes this header into every library's
-// key, so a change here rebuilds them all.
+// Helpers shared by the kernels (fused_block.cu, fused_stem.cu,
+// fused_downsample.cu, depthwise_conv.cu; ring_all_gather.cu takes only the
+// error-string export).  Each source still builds into its own shared
+// library; ops/_build.py hashes this header into every library's key, so a
+// change here rebuilds them all.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,18 +1,22 @@
-"""MMGCLIP's serving surface in PyTorch (port of mmgclip_tpu/models/clip.py).
+"""MMGCLIP in PyTorch (port of mmgclip_tpu/models/clip.py).
 
 The dual-encoder CLIP head over frozen towers: stored 768-d ConvNeXt
 features are flattened (the ``ConvNextTiny`` feature path), the frozen BERT
 tower is EOS-pooled, each side goes through its projection head, then
 L2-normalization and the learnable logit scale.  Parameters live on the
-module (``weights.load_clip_params`` loads the JAX trainable tree).
+module (``weights.load_clip_params`` loads the JAX trainable tree,
+``weights.clip_params_tree`` writes it back).  The text tower is frozen
+(``requires_grad=False``); the trainable set is the heads plus
+``logit_scale`` (``trainable_parameters``), as in the JAX package.
+``forward(train=True)`` applies head dropout from an explicit
+``torch.Generator`` and adds the T2T branch for ``MMGCLIPLoss``.
 
-Not ported yet (ROADMAP.md): the causal/BioGPT text tower, the trainable
-ResNet-50 image tower, the training forward and its T2T branch.
+Not ported yet (ROADMAP.md): the causal/BioGPT text tower and the trainable
+ResNet-50 image tower.
 """
 
 from __future__ import annotations
 
-import math
 import os
 from typing import Dict, Optional
 
@@ -75,6 +79,7 @@ class MMGCLIP(nn.Module):
             raise NotImplementedError(
                 f"image encoder {image_encoder_name!r} is not ported yet; the port "
                 "serves the ConvNextTiny feature path (ROADMAP.md, queue 1 item 11)")
+        self.image_encoder_name = image_encoder_name
         self.image_features_dimension = int(config.networks.image_encoder.image_features_dimension)
 
         text_encoder_name = str(config.get_path("networks.text_encoder.name", "BertEncoder"))
@@ -95,6 +100,7 @@ class MMGCLIP(nn.Module):
                 logger.info(f"Loaded converted text-tower weights from {weights_path}.")
             else:
                 logger.warning(f"text_encoder.weights_path {weights_path!r} not found; using random init.")
+        self.text_module.requires_grad_(False)  # frozen: its features are cached once
         self.text_output_dimension = self.bert_config.hidden_size
         self.text_pad_trim_multiple = int(
             config.get_path("networks.text_encoder.config.pad_trim_multiple", 32))
@@ -115,7 +121,25 @@ class MMGCLIP(nn.Module):
                 generator=torch.Generator().manual_seed(seed + 3))
             logger.info(f"Embeddings projected to {proj_dim} features using {projection_name}.")
         temperature = float(config.networks.logit_temperature)
-        self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / temperature), dtype=torch.float32))
+        self.logit_scale = nn.Parameter(
+            torch.tensor(np.log(1.0 / temperature), dtype=torch.float32))
+        self.loss_name = str(config.get_path("loss.config.loss_name", "CLIPLoss"))
+
+    def trainable_parameters(self) -> Dict[str, nn.Parameter]:
+        """Dotted name -> parameter of the heads and ``logit_scale``: the JAX
+        ``trainable_params`` tree, flattened."""
+        out: Dict[str, nn.Parameter] = {}
+        for name in ("image_projection", "text_projection"):
+            head = getattr(self, name)
+            if head is not None:
+                out.update({f"{name}.{key}": p for key, p in head.named_parameters()})
+        out["logit_scale"] = self.logit_scale
+        return out
+
+    def count_parameters(self) -> int:
+        total = sum(p.numel() for p in self.trainable_parameters().values())
+        logger.info(f"Total Trainable Params: {total}")
+        return total
 
     @property
     def device(self) -> torch.device:
@@ -136,9 +160,48 @@ class MMGCLIP(nn.Module):
                                   token_type_ids=tensors.get("token_type_ids"))
         return eos_pool(hidden, tensors["attention_mask"])
 
-    def project_image(self, features: torch.Tensor) -> torch.Tensor:
-        return features if self.image_projection is None else self.image_projection(features)
+    def project_image(self, features: torch.Tensor, train: bool = False,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.image_projection is None:
+            return features
+        return self.image_projection(features, train=train, generator=generator)
 
-    def project_text(self, features: torch.Tensor) -> torch.Tensor:
-        return features if self.text_projection is None else self.text_projection(features)
+    def project_text(self, features: torch.Tensor, train: bool = False,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.text_projection is None:
+            return features
+        return self.text_projection(features, train=train, generator=generator)
+
+    def forward(self, batch: Optional[Dict] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None, validation: bool = False,
+                text_features: Optional[torch.Tensor] = None,
+                text_features2: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Full forward (reference: mmgclip_model.py:117-166).
+
+        ``text_features`` / ``text_features2`` short-circuit the frozen text
+        tower with cached EOS-pooled activations.  Dropout masks come from
+        ``generator`` in the order image head, text head, second text head."""
+        batch = batch or {}
+        image_features = self.apply_image_tower(batch["image_features"])
+        if text_features is None:
+            text_features = self.apply_text_tower(batch["text_tokens"])
+        image_embeddings = l2_normalize(self.project_image(image_features, train, generator))
+        text_embeddings = l2_normalize(self.project_text(text_features, train, generator))
+
+        logit_scale = torch.exp(self.logit_scale)
+        output = {
+            "image_embeddings": image_embeddings,
+            "text_embeddings": text_embeddings,
+            "logit_scale": logit_scale,
+            "logits_per_image": logit_scale * image_embeddings @ text_embeddings.T,
+            "logits_per_text": logit_scale * text_embeddings @ image_embeddings.T,
+        }
+        # second text pass for the T2T term (reference: mmgclip_model.py:154-164)
+        if self.loss_name == "MMGCLIPLoss" and not validation:
+            if text_features2 is None and "image_impression_tokens" in batch:
+                text_features2 = self.apply_text_tower(batch["image_impression_tokens"])
+            if text_features2 is not None:
+                output["text_embeddings2"] = l2_normalize(
+                    self.project_text(text_features2, train, generator))
+        return output
 

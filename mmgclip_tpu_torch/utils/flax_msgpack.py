@@ -1,4 +1,5 @@
-"""Reader for flax's msgpack serialization (``flax.serialization.to_bytes``).
+"""Reader and writer for flax's msgpack serialization
+(``flax.serialization.to_bytes``).
 
 The JAX package stores parameter trees as flax msgpack bytes: the converted
 tower weights and the ``params`` of its checkpoints.  The card's machine has
@@ -6,7 +7,9 @@ neither flax nor msgpack, so the port decodes the format itself: a msgpack
 map of string keys whose array leaves are ExtType 1 records, each itself a
 msgpack ``[shape, dtype name, raw C-order bytes]``; numpy scalars are
 ExtType 3 records of the same form with shape ``[]``.  Arrays come back as
-numpy arrays (``bfloat16`` leaves widened exactly to float32).
+numpy arrays (``bfloat16`` leaves widened exactly to float32).  ``to_bytes``
+writes the same bytes flax writes for a tree of numpy arrays, so the JAX
+package reads the port's checkpoints.
 """
 
 from __future__ import annotations
@@ -147,3 +150,101 @@ def _reject_chunked(node: Any) -> None:
 def read_file(path: str) -> Any:
     with open(path, "rb") as fh:
         return from_bytes(fh.read())
+
+
+# ----------------------------------------------------------------------
+# writer: the bytes msgpack-python writes for flax (smallest encodings)
+
+def _sized(out: bytearray, n: int, fix: Tuple[int, int], markers: Tuple[int, ...]) -> None:
+    """A length header: the fix form when ``n < fix[1]``, else the 8/16/32-bit
+    marker (``markers`` lists them from the smallest; 0 where a width has none)."""
+    if fix[0] is not None and n < fix[1]:
+        out.append(fix[0] | n)
+        return
+    for marker, fmt in zip(markers, ("B", "H", "I")):
+        if marker and n < (1 << (8 * struct.calcsize(fmt))):
+            out.append(marker)
+            out += struct.pack(">" + fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixext:
+        out.append(fixext[len(data)])
+    else:
+        _sized(out, len(data), (None, 0), (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _array_record(arr: np.ndarray) -> bytes:
+    return packb([list(arr.shape), arr.dtype.name, np.ascontiguousarray(arr).tobytes()])
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _array_record(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _array_record(np.asarray(obj)))
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        elif obj > 0:
+            for marker, fmt in ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"), (0xCF, "Q")):
+                if obj < (1 << (8 * struct.calcsize(fmt))):
+                    out.append(marker)
+                    out += struct.pack(">" + fmt, obj)
+                    return
+            raise ValueError(f"integer {obj} too large for msgpack")
+        else:
+            for marker, fmt in ((0xD0, "b"), (0xD1, "h"), (0xD2, "i"), (0xD3, "q")):
+                if obj >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                    out.append(marker)
+                    out += struct.pack(">" + fmt, obj)
+                    return
+            raise ValueError(f"integer {obj} too small for msgpack")
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _sized(out, len(raw), (0xA0, 32), (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray)):
+        _sized(out, len(obj), (None, 0), (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, (list, tuple)):
+        _sized(out, len(obj), (0x90, 16), (0, 0xDC, 0xDD))
+        for item in obj:
+            _pack(item, out)
+    elif isinstance(obj, dict):
+        _sized(out, len(obj), (0x80, 16), (0, 0xDE, 0xDF))
+        for key, value in obj.items():
+            _pack(key, out)
+            _pack(value, out)
+    else:
+        raise TypeError(f"cannot msgpack {type(obj).__name__}")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode one object; numpy arrays and scalars become flax ext records."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+def to_bytes(tree: Any) -> bytes:
+    """Nested dict of numpy arrays -> the bytes ``flax.serialization.to_bytes``
+    writes for the same tree as a jax pytree (keys as strings, sorted)."""
+    def state_dict(node):  # keys as strings, in sorted order as jax trees hold them
+        if isinstance(node, dict):
+            return {str(k): state_dict(node[k]) for k in sorted(node, key=str)}
+        return node
+
+    return packb(state_dict(tree))

@@ -68,5 +68,31 @@ def load_clip_params(model: nn.Module, trainable: Dict[str, Any]) -> nn.Module:
             load_flax_tree(head, trainable[name])
     if set(trainable) != expected:
         raise KeyError(f"trainable tree keys {sorted(trainable)} != {sorted(expected)}")
-    model.logit_scale.copy_(torch.as_tensor(np.asarray(trainable["logit_scale"])))
+    model.logit_scale.copy_(torch.as_tensor(np.array(trainable["logit_scale"], np.float32)))
     return model
+
+
+def module_tree(module: nn.Module) -> Dict[str, Any]:
+    """``module``'s parameters -> nested dict of numpy arrays by flax path
+    (the inverse of ``load_flax_tree``)."""
+    tree: Dict[str, Any] = {}
+    for name, param in module.named_parameters():
+        node = tree
+        *parents, leaf = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = param.detach().cpu().numpy().copy()
+    return tree
+
+
+def clip_params_tree(model: nn.Module) -> Dict[str, Any]:
+    """``MMGCLIP``'s heads and logit scale -> the JAX ``trainable_params``
+    tree of numpy arrays (the inverse of ``load_clip_params``; what the
+    checkpoint writer stores)."""
+    tree: Dict[str, Any] = {}
+    for name in ("image_projection", "text_projection"):
+        head = getattr(model, name)
+        if head is not None:
+            tree[name] = module_tree(head)
+    tree["logit_scale"] = model.logit_scale.detach().cpu().numpy().copy()
+    return tree

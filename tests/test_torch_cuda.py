@@ -10,7 +10,9 @@ Tolerances: fp32 1e-4 relative to the largest output (the block, stem,
 downsample and depthwise kernels) and 1e-5 absolute (attention), TF32 off;
 bf16 two bf16 steps of the largest output (the two sides round at different
 points); the int8 block 2**-5 relative against its same-partition plain
-version (a rounding flip moves a value by one quantisation step).
+version (a rounding flip moves a value by one quantisation step); the ring
+all-gather bit-equal (it copies), and the global losses through it within
+1e-6 relative (loss) and 1e-5 (gradients) of the single-device losses.
 """
 
 import numpy as np
@@ -42,6 +44,15 @@ from mmgclip_tpu_torch.ops.fused_downsample import (
     plain_ln_downsample,
 )
 from mmgclip_tpu_torch.ops.fused_stem import fused_stem, launch_fused_stem, plain_stem
+from mmgclip_tpu_torch.parallel import (
+    check_ring,
+    global_clip_loss,
+    global_mmgclip_loss,
+    launch_ring_all_gather,
+    ring_all_gather_diff,
+    ring_all_gather_plain,
+)
+from mmgclip_tpu_torch.parallel.collectives import _launch_ring
 
 pytestmark = pytest.mark.cuda
 
@@ -270,6 +281,7 @@ def _cpu_calls():
         "depthwise_conv7x7": lambda: launch_depthwise_conv7x7(x, params[0], params[1]),
         "flash_attention": lambda: launch_flash_attention(
             *qkv(1, 1, 4, 8, torch.float32, "cpu"), torch.tensor([4], dtype=torch.int32)),
+        "ring_all_gather": lambda: launch_ring_all_gather([torch.zeros(2, 3), torch.ones(2, 3)]),
     }
 
 
@@ -279,3 +291,88 @@ def test_every_launcher_refuses_cpu_tensors(name):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         _cpu_calls()[name]()
     assert launch_counts()[name] == before
+
+
+# ----------------------------------------------------------------------
+# ring all-gather
+
+def ring_shards(ranks, shape, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype.is_floating_point:
+        return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+                for _ in range(ranks)]
+    return [torch.from_numpy(rng.integers(-100, 100, size=shape)).to(device, dtype) for _ in range(ranks)]
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("shape,dtype", [((32, 512), torch.float32), ((32, 512), torch.bfloat16),
+                                         ((256, 768), torch.float32), ((5, 100), torch.float32),
+                                         ((7, 3), torch.int8), ((3,), torch.float64),
+                                         ((4, 6), torch.float16)])
+def test_ring_kernel_is_bit_equal_to_plain(cuda_device, ranks, shape, dtype):
+    shards = ring_shards(ranks, shape, dtype, cuda_device)
+    before = launch_counts()["ring_all_gather"]
+    outs = launch_ring_all_gather(shards)
+    assert launch_counts()["ring_all_gather"] == before + 1
+    for out, ref in zip(outs, ring_all_gather_plain(shards)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        assert torch.equal(out.view(torch.uint8) if dtype.is_floating_point else out,
+                           ref.view(torch.uint8) if dtype.is_floating_point else ref)
+
+
+def test_ring_repeated_calls_stay_exact(cuda_device):
+    """50 calls back to back, the generation rising: a stale flag of an
+    earlier call would let a rank forward a chunk before it arrived."""
+    for i in range(50):
+        shards = ring_shards(8, (32, 512), torch.float32, cuda_device, seed=i)
+        for out, ref in zip(launch_ring_all_gather(shards), ring_all_gather_plain(shards)):
+            assert torch.equal(out, ref)
+
+
+def test_ring_protocol_timeout_raises_and_the_ring_recovers(cuda_device):
+    shards = ring_shards(4, (32, 512), torch.float32, cuda_device)
+    _launch_ring(shards, timeout_ns=20_000_000, drop_step=0)  # queued: the fault shows at the check
+    with pytest.raises(RuntimeError, match="protocol timeout"):
+        check_ring(cuda_device)
+    check_ring(cuda_device)  # reported once
+    for out, ref in zip(launch_ring_all_gather(shards), ring_all_gather_plain(shards)):
+        assert torch.equal(out, ref)
+
+
+def test_ring_diff_backward_is_the_reduce_scatter(cuda_device):
+    shards = [t.requires_grad_() for t in ring_shards(4, (8, 16), torch.float32, cuda_device)]
+    outs = ring_all_gather_diff(shards)
+    weights = ring_shards(4, (32, 16), torch.float32, cuda_device, seed=1)
+    sum((o * w).sum() for o, w in zip(outs, weights)).backward()
+    total = torch.stack(weights).sum(0)
+    for r, shard in enumerate(shards):
+        torch.testing.assert_close(shard.grad, total[r * 8:(r + 1) * 8], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mmgclip", [False, True])
+def test_global_losses_through_the_ring_match_single_device(cuda_device, mmgclip):
+    from mmgclip_tpu_torch.losses import clip_loss, mmgclip_loss
+    from mmgclip_tpu_torch.models.clip import l2_normalize
+
+    ranks, local, d = 8, 8, 64
+    kinds = 3 if mmgclip else 2
+    shards = [[l2_normalize(t).requires_grad_() for t in ring_shards(ranks, (local, d), torch.float32,
+                                                                      cuda_device, seed=k)]
+              for k in range(kinds)]
+    scale = torch.tensor(1 / 0.07, device=cuda_device)
+    before = launch_counts()["ring_all_gather"]
+    if mmgclip:
+        loss, _ = global_mmgclip_loss(*shards, scale, use_ring_gather=True)
+    else:
+        loss, _ = global_clip_loss(*shards, scale, use_ring_gather=True)
+    assert launch_counts()["ring_all_gather"] == before + (4 if mmgclip else 2)
+    loss.backward()
+    full = [torch.cat([t.detach() for t in s]).requires_grad_() for s in shards]
+    if mmgclip:
+        ref, _ = mmgclip_loss(*full, scale)
+    else:
+        ref, _ = clip_loss(scale * full[0] @ full[1].T, scale * full[1] @ full[0].T)
+    ref.backward()
+    torch.testing.assert_close(loss, ref, rtol=1e-6, atol=0)
+    for s, f in zip(shards, full):
+        torch.testing.assert_close(torch.cat([t.grad for t in s]), f.grad, rtol=0, atol=1e-5)

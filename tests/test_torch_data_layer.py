@@ -99,7 +99,10 @@ def test_cli_parses_like_jax(tmp_path):
     assert ours[1:] == theirs[1:] and os.path.samefile(ours[0], theirs[0])
     cfg = compose_run("train_binary_class_clf", [f"hydra.run.dir={tmp_path}/run", "base.seed=3"])
     assert cfg.base.seed == 3 and os.path.isdir(str(tmp_path / "run"))
-    assert not os.path.exists(str(tmp_path / "run" / ".hydra"))  # no snapshot yet
+    # the .hydra snapshot, read back by the JAX package's recompose as the same config
+    from mmgclip_tpu.config import recompose as jax_recompose
+
+    assert jax_recompose(str(tmp_path / "run")).to_dict() == cfg.to_dict()
 
 
 @pytest.mark.parametrize("count", [1, 2, 3])

@@ -3,8 +3,11 @@ machine lacks.
 
 An AST check over every module of ``mmgclip_tpu_torch`` and ``chip_smoke.py``
 refuses imports of the JAX package and of packages that machine does not
-have, and a subprocess with those packages blocked in ``sys.modules`` imports
-every port module and runs the micro serving path on the CPU.
+have, and a subprocess with those packages blocked in ``sys.modules`` (and
+matplotlib and tensorboard, which the evaluator and the scalar writer only
+try) imports every port module, runs the micro serving path on the CPU, and
+trains, tests and re-evaluates a tiny run through the ``train`` and
+``evaluate_clip`` entry points.
 """
 
 import ast
@@ -19,6 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "mmgclip_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmgclip_tpu", "yaml", "msgpack", "PIL",
              "pandas", "transformers", "triton", "ninja")
+BLOCKED = FORBIDDEN + ("matplotlib", "tensorboard")
 
 
 def port_sources():
@@ -47,7 +51,7 @@ def test_no_forbidden_imports(path):
 def test_port_runs_with_the_missing_packages_blocked(tmp_path):
     script = textwrap.dedent(f"""
         import sys
-        for name in {FORBIDDEN!r}:
+        for name in {BLOCKED!r}:
             sys.modules[name] = None  # any import of it now raises ImportError
         import importlib, json, os, pkgutil, base64
         sys.path.insert(0, {REPO!r})
@@ -70,7 +74,22 @@ def test_port_runs_with_the_missing_packages_blocked(tmp_path):
         report = handle(engine, {{"op": "report", "features_b64": b64}})["reports"]
         assert len(report) == 1 and report[0]
         engine.close()
-        blocked = [m for m in {FORBIDDEN!r} if sys.modules.get(m) is not None]
+
+        from mmgclip_tpu_torch.evaluate_clip import main as evaluate_main
+        from mmgclip_tpu_torch.train import run
+        tree = chip_smoke.write_train_tree(os.path.join({str(tmp_path)!r}, "tree"), 12)
+        run_dir = os.path.join({str(tmp_path)!r}, "run")
+        cfg = chip_smoke.train_config(run_dir, tree, [
+            "networks.text_encoder.config={{hidden_size: 32, num_hidden_layers: 1, "
+            "num_attention_heads: 2, intermediate_size: 64}}",
+            "dataloader.train.batch_size=4", "dataloader.valid.batch_size=2",
+            "dataloader.test.batch_size=2", "scheduler.config.epochs=2"])
+        run(cfg, device="cpu")
+        evaluate_main(["--experiment_path", run_dir, "--run_name", "replay", "--device", "cpu"])
+        results = [json.load(open(os.path.join(run_dir, name, "results.json")))
+                   for name in ("results", "replay")]
+        assert results[0] == results[1] and results[0]["BenignMalignantDatasetLabels"], results
+        blocked = [m for m in {BLOCKED!r} if sys.modules.get(m) is not None]
         assert not blocked, blocked
         print("OK")
     """)
@@ -86,3 +105,19 @@ def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
                             cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=120)
     assert result.returncode != 0
     assert '"ok": true' not in result.stdout
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("train", []),
+    ("evaluate_clip", ["--experiment_path", "/nonexistent", "--run_name", "x"]),
+    ("encode_images", []),
+])
+def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked(module, argv, monkeypatch):
+    import importlib
+
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    entry = importlib.import_module(f"mmgclip_tpu_torch.{module}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.main(argv)
