@@ -54,14 +54,15 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks (NVIDIA data sheets, dense): HBM bytes/s, fp32 (non-tensor)
-# and bf16 (tensor core) operations/s, keyed by the name nvidia-smi reports.
+# and tf32 / bf16 / int8 (tensor core) operations/s, keyed by the name
+# nvidia-smi reports.
 PEAKS = {
-    "H100 80GB HBM3": {"variant": "H100 SXM5", "bytes": 3.35e12, "fp32": 67e12, "bf16": 989e12,
-                       "int8": 1979e12},
-    "H100 PCIe": {"variant": "H100 PCIe", "bytes": 2.0e12, "fp32": 51e12, "bf16": 756e12,
-                  "int8": 1513e12},
-    "H100 NVL": {"variant": "H100 NVL", "bytes": 3.9e12, "fp32": 60e12, "bf16": 835e12,
-                 "int8": 1671e12},
+    "H100 80GB HBM3": {"variant": "H100 SXM5", "bytes": 3.35e12, "fp32": 67e12, "tf32": 495e12,
+                       "bf16": 989e12, "int8": 1979e12},
+    "H100 PCIe": {"variant": "H100 PCIe", "bytes": 2.0e12, "fp32": 51e12, "tf32": 378e12,
+                  "bf16": 756e12, "int8": 1513e12},
+    "H100 NVL": {"variant": "H100 NVL", "bytes": 3.9e12, "fp32": 60e12, "tf32": 417.5e12,
+                 "bf16": 835e12, "int8": 1671e12},
 }
 FP32_REL_TOL = 1e-4           # kernel 1 vs plain, fp32 with TF32 off
 BF16_REL_TOL = 2.0 ** -6      # both kernels in bf16: two bf16 steps of the largest value
@@ -139,6 +140,26 @@ def device_ms(fn, calls: int = 20, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
+def chained_ms(fn, calls: int = 20, repeats: int = 5) -> float:
+    """Median time per call of ``calls`` back-to-back ``fn()`` calls between
+    two events, with no sleep kernel ahead: for a function that waits for
+    the device by itself, so that ``device_ms`` cannot queue it; its stalls
+    count."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def write_png16(path: str, pixels: np.ndarray, paeth: bool = False) -> None:
     """Grayscale 16-bit PNG with the standard library's zlib: every row
     unfiltered, or every row Paeth-filtered (the slow case for decoders)."""
@@ -194,10 +215,18 @@ def flash_work(b, heads, s, d, lengths, dtype_bytes):
     return ops, moved
 
 
-def bound_ms(ops, moved, dtype, peaks):
-    rate = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
+def bound_ms(ops, moved, dtype, peaks, rate=None):
+    rate = rate or (peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"])
     t_ops, t_bytes = ops / rate, moved / peaks["bytes"]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_rate(dtype, peaks):
+    """(operations/s, label) of the flash kernel's products: bf16 on the
+    tensor cores, fp32 as three TF32 products each (the three-pass split)."""
+    if dtype == torch.bfloat16:
+        return peaks["bf16"], "bf16 tensor cores"
+    return peaks["tf32"] / 3, "TF32 rate / 3, the three-pass split"
 
 
 # ----------------------------------------------------------------------
@@ -644,21 +673,25 @@ def timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts):
         for shape, cout in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 args = glue_inputs(kind, shape, dtype, gen, device, cout)
-                ms = time_ms(lambda: launch(*args))
-                plain_ms = time_ms(lambda: plain(*args))
-                library = None
-                if kind == "depthwise":
+                library, host = None, ""
+                if kind == "depthwise":  # device time per call of back-to-back calls
+                    ms = device_ms(lambda: launch(*args))
+                    plain_ms = device_ms(lambda: plain(*args))
                     x, w, b = args
                     w_oihw = w.permute(3, 2, 0, 1).contiguous()
-                    library = time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, padding=3,
-                                                       groups=shape[-1]))
+                    library = device_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, padding=3,
+                                                         groups=shape[-1]))
+                    host = f"; one checked call {time_ms(lambda: launch(*args)):.4f} ms with its host time"
+                else:
+                    ms = time_ms(lambda: launch(*args))
+                    plain_ms = time_ms(lambda: plain(*args))
                 bms, by = {"stem": lambda: stem_bound(shape, cout, torch.float32, dtype, peaks),
                            "downsample": lambda: downsample_bound(shape, cout, dtype, peaks),
                            "depthwise": lambda: depthwise_bound(shape, dtype, peaks),
                            "int8": lambda: int8_block_bound(shape, dtype, peaks)}[kind]()
-                lib = "" if library is None else f", library {library:.3f} ms"
+                lib = "" if library is None else f", library {library:.4f} ms"
                 log(f"    {kind} {shape}" + (f"->{cout}" if cout else "") + f" {str(dtype)[6:]}: "
-                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound {bms:.4f} ms ({by})")
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound {bms:.4f} ms ({by}){host}")
                 if dtype != torch.bfloat16:
                     continue
                 for wshape, wcout, reps in work[kind]:
@@ -683,7 +716,7 @@ def timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts):
                        "3 downsamples of one 2x2294x1914 feature-store bucket, bf16"),
         "depthwise": ("depthwise_conv7x7", "mmgclip_tpu_torch/csrc/depthwise_conv.cu",
                       "mmgclip_tpu/ops/depthwise_conv.py:45", dw_counts,
-                      "18 depthwise convs of one 2x1024x832 bucket, bf16"),
+                      "18 depthwise convs of one 2x1024x832 bucket, bf16; device time"),
     }
     entries = []
     for kind in ("int8", "stem", "downsample", "depthwise"):
@@ -1390,7 +1423,9 @@ def timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts, b
     }
 
     # kernel 2: the serving path's prompt-bank batch (fp32, pad-trimmed s);
-    # per-shape lines also at s=256 and in bf16
+    # per-shape lines also at s=256 and in bf16.  Kernel, plain and SDPA as
+    # device time per call of back-to-back calls; beside them the host time
+    # of one checked call (allocation, ctypes, launch)
     lengths_banks = torch.as_tensor(np.asarray(tokens["attention_mask"]).sum(1), dtype=torch.int32)
     b_banks, s_banks = tokens["input_ids"].shape
     entry = None
@@ -1400,13 +1435,20 @@ def timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts, b
             q, k, v = (torch.randn(b, 12, s, 64, generator=gen).to(device, dtype) for _ in range(3))
             lens = lengths.to(device)
             mask = torch.arange(s, device=device)[None, :] < lens[:, None]
-            ms = time_ms(lambda: launch_flash_attention(q, k, v, lens))
-            plain = time_ms(lambda: attention_reference(q, k, v, mask))
-            sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None, None, :]))
+            ms = device_ms(lambda: launch_flash_attention(q, k, v, lens))
+            # attention_reference copies its -1e30 fill to the card, which
+            # waits for the queue: back-to-back calls with their stalls
+            plain = chained_ms(lambda: attention_reference(q, k, v, mask))
+            sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask[:, None, None, :]))
+            host = time_ms(lambda: launch_flash_attention(q, k, v, lens))
             ops, moved = flash_work(b, 12, s, 64, lengths.tolist(), 2 if dtype == torch.bfloat16 else 4)
-            bms, by = bound_ms(ops, moved, dtype, peaks)
-            log(f"    flash_attention b={b} h=12 s={s} d=64 {str(dtype)[6:]}: kernel {ms:.4f} ms, "
-                f"plain {plain:.4f} ms, sdpa {sdpa:.4f} ms, bound {bms:.5f} ms ({by})")
+            rate, rate_label = flash_rate(dtype, peaks)
+            bms, by = bound_ms(ops, moved, dtype, peaks, rate)
+            log(f"    flash_attention b={b} h=12 s={s} d=64 {str(dtype)[6:]}: kernel {ms:.5f} ms, "
+                f"sdpa {sdpa:.5f} ms (device time per call), plain {plain:.5f} ms (chained calls), "
+                f"bound {bms:.5f} ms ({by}; {rate_label}); one checked call {host:.4f} ms with its "
+                f"host time")
             if entry is None:
                 entry = {
                     "name": "flash_attention", "route": "cuda",
@@ -1415,7 +1457,8 @@ def timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts, b
                     "launches": counts["flash_attention"],
                     "max_abs_err": max(v for (_s, dt), v in flash_err.items() if dt == torch.float32),
                     "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": sdpa,
-                    "work": f"prompt-bank batch b={b} h=12 s={s} d=64, fp32",
+                    "work": f"prompt-bank batch b={b} h=12 s={s} d=64, fp32; device time; "
+                            f"bound at {rate_label}",
                 }
     return [block_entry, entry]
 

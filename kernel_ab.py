@@ -1,0 +1,213 @@
+"""Time the flash attention and depthwise kernels of two checkouts on one card.
+
+    python3 kernel_ab.py --parent <directory holding the other checkout> [--out <json>]
+
+Builds ``mmgclip_tpu_torch/csrc/{flash_attention,depthwise_conv}.cu`` of the
+other checkout (unpacked with ``git archive``) with this tree's ``nvcc``
+flags and loads both trees' libraries through ctypes: the C entry points
+``mmg_flash_attention`` and ``mmg_depthwise_conv7x7`` keep one signature.
+Each case is the main path's work of a kernel, timed as device time per
+call of back-to-back calls (``chip_smoke.device_ms``) in the order parent,
+change, change, parent, on the same inputs and preallocated outputs:
+
+* flash: the serving path's prompt-bank batch (b=28, s=32 after the pad
+  trim) and BERT-base at b=8 s=256 with phase 7's lengths, fp32 and bf16;
+* depthwise: the 18 convs of a 2 x 1024x832 bucket (depths 3/3/9/3), bf16
+  and fp32, and the full-field stage-1 shape alone.
+
+The two trees' outputs are held against each other with chip_smoke's
+tolerances.  One line per case is printed and all of them are written to
+``--out`` (default ``outputs/kernel_ab.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PHASE7_LENGTHS = (256, 200, 31, 1, 256, 128, 77, 255)
+DEPTHS = (3, 3, 9, 3)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def build_parent(parent: str, out_dir: str) -> dict:
+    """The other checkout's two libraries, built in parallel and typed."""
+    from mmgclip_tpu_torch.ops import _build, depthwise_conv, flash_attention
+
+    csrc = os.path.join(parent, "mmgclip_tpu_torch", "csrc")
+    jobs = {}
+    for source, module in (("flash_attention.cu", flash_attention),
+                           ("depthwise_conv.cu", depthwise_conv)):
+        target = os.path.join(out_dir, "lib" + source.replace(".cu", ".so"))
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", target, os.path.join(csrc, source)]
+        jobs[source] = (target, module, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                         stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for source, (target, module, proc) in jobs.items():
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the parent's {source}:\n{output}")
+        lib = ctypes.CDLL(target)
+        for name, argtypes in module._SIGNATURES.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        libs[source] = lib
+    return libs
+
+
+def change_libs() -> dict:
+    from mmgclip_tpu_torch.ops import _build, depthwise_conv, flash_attention
+
+    return {"flash_attention.cu": _build.load_typed("flash_attention.cu", flash_attention._SIGNATURES),
+            "depthwise_conv.cu": _build.load_typed("depthwise_conv.cu", depthwise_conv._SIGNATURES)}
+
+
+def prompt_bank_lengths():
+    """(s, [b] valid lengths) of the serving path's pad-trimmed prompt banks."""
+    from mmgclip_tpu_torch.config import compose
+    from mmgclip_tpu_torch.data.tokenizer import Tokenizer
+    from mmgclip_tpu_torch.evaluation.report_cascade import BANK_ORDER, BANKS
+    from mmgclip_tpu_torch.models.bert import trim_padded_tail
+
+    cfg = compose(os.path.join(REPO, "configs"), "train_binary_class_clf",
+                  ["networks=clip_convnext_fused_bert"])
+    tok = Tokenizer.from_pretrained(cfg.tokenizer.config.tokenizer_name,
+                                    sequence_length=int(cfg.tokenizer.config.sequence_length))
+    prompts = [p for bank in BANK_ORDER for p in BANKS[bank]]
+    mask = np.asarray(trim_padded_tail(tok(prompts, max_length=256), 32)["attention_mask"])
+    return mask.shape[1], mask.sum(1).astype(np.int32)
+
+
+def flash_items(s, lengths, dtype, rng, device):
+    b = len(lengths)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, 12, s, 64)).astype(np.float32)).to(device, dtype)
+               for _ in range(3))
+    lens = torch.as_tensor(np.asarray(lengths, np.int32), device=device)
+    return [((q, k, v, lens), torch.empty_like(q), 1)]
+
+
+def depthwise_items(shapes_reps, dtype, rng, device):
+    items = []
+    for shape, reps in shapes_reps:
+        c = shape[-1]
+        args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32) * scale).to(device, dtype)
+                for s, scale in ((shape, 1.0), ((7, 7, 1, c), 0.2), ((c,), 0.1))]
+        items.append((tuple(args), torch.empty_like(args[0]), reps))
+    return items
+
+
+def launcher(kind, lib):
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "flash":
+        def call(args, out):
+            q, k, v, lens = args
+            b, h, s, d = q.shape
+            return lib.mmg_flash_attention(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                                           v.data_ptr(), lens.data_ptr(), out.data_ptr(), b, h, s,
+                                           d, 1.0 / math.sqrt(d), stream)
+    else:
+        def call(args, out):
+            x, w, b = args
+            n, h, wd, c = x.shape
+            return lib.mmg_depthwise_conv7x7(DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+                                             b.data_ptr(), out.data_ptr(), n, h, wd, c, stream)
+
+    def work(items):
+        for args, out, reps in items:
+            for _ in range(reps):
+                code = call(args, out)
+                if code != 0:
+                    raise RuntimeError(f"{kind} launch failed: CUDA error {code}")
+    return work
+
+
+def agree(kind, dtype, a, b):
+    """The two trees' outputs within chip_smoke's kernel-vs-plain tolerance."""
+    from chip_smoke import BF16_REL_TOL, FLASH_FP32_ABS_TOL, FP32_REL_TOL
+
+    err = (a.float() - b.float()).abs().max().item()
+    scale = b.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        return err, err <= BF16_REL_TOL * scale
+    if kind == "flash":
+        return err, err <= FLASH_FP32_ABS_TOL
+    return err, err <= FP32_REL_TOL * scale
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", required=True, help="root of the other checkout")
+    parser.add_argument("--out", default=os.path.join(REPO, "outputs", "kernel_ab.json"))
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", flush=True)
+        return 1
+    from chip_smoke import FFDM_SHAPES, PAIR_HW, device_ms, log, stage_shapes_of
+
+    device = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
+        parent = build_parent(os.path.abspath(args.parent), tmp)
+        change = change_libs()
+        s_bank, bank_lengths = prompt_bank_lengths()
+        bucket = stage_shapes_of(2, *PAIR_HW)
+        ffdm = stage_shapes_of(1, *FFDM_SHAPES[0])[0]
+        rng = np.random.default_rng(0)
+        cases = []
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((f"flash prompt banks b={len(bank_lengths)} s={s_bank}", "flash", dtype,
+                          flash_items(s_bank, bank_lengths, dtype, rng, device)))
+            cases.append(("flash b=8 s=256 phase-7 lengths", "flash", dtype,
+                          flash_items(256, PHASE7_LENGTHS, dtype, rng, device)))
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"depthwise 18 convs of 2x{PAIR_HW[0]}x{PAIR_HW[1]}", "depthwise", dtype,
+                          depthwise_items(list(zip(bucket, DEPTHS)), dtype, rng, device)))
+        cases.append((f"depthwise stage 1 {ffdm}", "depthwise", torch.bfloat16,
+                      depthwise_items([(ffdm, 1)], torch.bfloat16, rng, device)))
+
+        rows = []
+        for label, kind, dtype, items in cases:
+            source = "flash_attention.cu" if kind == "flash" else "depthwise_conv.cu"
+            runs = {"parent": launcher(kind, parent[source]), "change": launcher(kind, change[source])}
+            outs = {}
+            for tree, run in runs.items():  # one checked call each: the outputs to compare
+                run(items)
+                outs[tree] = items[-1][1].clone()
+            torch.cuda.synchronize()
+            err, ok = agree(kind, dtype, outs["change"], outs["parent"])
+            if not ok:
+                raise AssertionError(f"{label} {dtype}: the two trees differ by {err}")
+            times = {tree: device_ms(lambda: runs[tree](items), calls=10)
+                     for tree in ("parent", "change")}
+            second = {tree: device_ms(lambda: runs[tree](items), calls=10)
+                      for tree in ("change", "parent")}
+            row = {"case": label, "dtype": str(dtype)[6:],
+                   "parent_ms": [times["parent"], second["parent"]],
+                   "change_ms": [times["change"], second["change"]], "max_abs_diff": err}
+            row["ratio"] = float(np.mean(row["change_ms"]) / np.mean(row["parent_ms"]))
+            rows.append(row)
+            log(f"{label} {row['dtype']}: parent {row['parent_ms'][0]:.5f} / {row['parent_ms'][1]:.5f} ms, "
+                f"change {row['change_ms'][0]:.5f} / {row['change_ms'][1]:.5f} ms "
+                f"(order parent, change, change, parent; device time per call of the work), "
+                f"change / parent {row['ratio']:.4f}, outputs differ by {err:.3e}")
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump({"card": smi, "cases": rows}, fh, indent=1)
+    log(json.dumps({"card": smi, "cases": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,8 @@
 // Helpers shared by the kernels (fused_block.cu, fused_stem.cu,
-// fused_downsample.cu, depthwise_conv.cu; ring_all_gather.cu takes only the
-// error-string export).  Each source still builds into its own shared
-// library; ops/_build.py hashes this header into every library's key, so a
-// change here rebuilds them all.
+// fused_downsample.cu, depthwise_conv.cu, flash_attention.cu;
+// ring_all_gather.cu takes only the error-string export).  Each source still
+// builds into its own shared library; ops/_build.py hashes this header into
+// every library's key, so a change here rebuilds them all.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,6 +63,36 @@ __device__ __forceinline__ float2 warp_row_stats(const float* row, int n, float 
   }
   const float rstd = 1.0f / sqrtf(warp_sum(sq) / (float)n + eps);
   return make_float2(mean, rstd);
+}
+
+// 16-byte asynchronous copy into shared memory; the bytes past ``src_bytes``
+// (all 16 when it is 0) are zero-filled, so a tile's padding costs no read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Raise a kernel's dynamic shared memory limit on the current device to the
+// opt-in maximum, which it stores in ``max_smem`` (bytes).
+template <typename Kernel>
+inline cudaError_t allow_max_smem(Kernel kernel, int* max_smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *max_smem);
+  return err;
 }
 
 // Largest tile (of the candidates, in order) whose shared memory fits and that

@@ -1,13 +1,20 @@
 """Depthwise 7x7 convolution (stride 1, SAME, plus bias) as one CUDA kernel,
 and its plain PyTorch version.
 
-Counterpart of mmgclip_tpu/ops/depthwise_conv.py (the kernel behind
-``ConvNeXtConfig.use_pallas_dwconv``).  On a CUDA tensor
-``depthwise_conv7x7`` launches ``csrc/depthwise_conv.cu`` for any C and any
-H, W >= 1 (the TPU's ``C % 128`` and VMEM gates do not carry over); on a CPU
-tensor it runs ``plain_depthwise_conv7x7``.  Both accumulate the 49 taps in
-fp32 and round once to x's dtype, as the JAX kernel does.
+Counterpart of mmgclip_tpu/ops/depthwise_conv.py (``_dw_call`` /
+``_dw_kernel``, the kernel behind ``ConvNeXtConfig.use_pallas_dwconv``).  On
+a CUDA tensor ``depthwise_conv7x7`` launches ``csrc/depthwise_conv.cu`` for
+any C and any H, W >= 1 (the TPU's ``C % 128`` and VMEM gates do not carry
+over); on a CPU tensor it runs ``plain_depthwise_conv7x7``.  Both accumulate
+the 49 taps in fp32 and round once to x's dtype, as the JAX kernel does.
 The gradient differentiates the plain version (``ops.run_kernel``).
+
+On an H100 the kernel is bound by bytes (98 operations per output against
+2 * sizeof(T) bytes).  Persistent CTAs stage the zero-filled 7x7 halo of a
+16 x 16 pixel tile and 32 channels, with the slice's taps, into shared
+memory with 16-byte ``cp.async`` (the zero-fill is the SAME padding),
+double-buffered so the next tile's copy runs under the current tile's FMAs;
+each thread slides a register window along a row for one channel pair.
 """
 
 from __future__ import annotations

@@ -1,12 +1,22 @@
 """Flash attention with per-row valid key lengths, and its plain version.
 
-Counterpart of mmgclip_tpu/ops/flash_attention.py.  On CUDA tensors
-``flash_attention`` launches ``csrc/flash_attention.cu`` for any s and any
-d <= 128 (the TPU's s >= 128 tiling floor does not carry over, so the
-pad-trimmed s = 32 prompt banks run the kernel); on CPU tensors it runs
-``attention_reference``.  The kernel reduces the mask to per-row lengths, so
-a mask that is not a contiguous valid prefix goes to ``attention_reference``
-on either device — the same routing as the JAX wrapper.
+Counterpart of mmgclip_tpu/ops/flash_attention.py (``_flash_call`` /
+``_flash_kernel``).  On CUDA tensors ``flash_attention`` launches
+``csrc/flash_attention.cu`` for any s and any d <= 128 (the TPU's s >= 128
+tiling floor does not carry over, so the pad-trimmed s = 32 prompt banks run
+the kernel); on CPU tensors it runs ``attention_reference``.  The kernel
+reduces the mask to per-row lengths, so a mask that is not a contiguous
+valid prefix goes to ``attention_reference`` on either device — the same
+routing as the JAX wrapper.
+
+On an H100 the kernel is bound by operations (4 * s * keys * d per head) at
+BERT sizes, so its products run on the tensor cores: a warp owns 16 query
+rows, K and V tiles of 32 keys arrive by double-buffered ``cp.async``, and
+``mma.sync`` computes S = Q K^T and P V with the online softmax on the S
+fragment in registers — bf16 operands with fp32 sums in bf16, and in fp32 a
+three-pass TF32 split (a_lo b_hi + a_hi b_lo + a_hi b_hi), which holds the
+fp32 result within 1e-5 of ``attention_reference`` (see the source's
+header and PERF.md for the measured error).
 """
 
 from __future__ import annotations

@@ -120,21 +120,28 @@ def qkv(b, h, s, d, dtype, device, seed=0):
             for _ in range(3)]
 
 
-@pytest.mark.parametrize("s", [1, 32, 77, 128, 256])
-@pytest.mark.parametrize("d", [64, 128, 40])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_matches_reference(cuda_device, s, d, dtype):
-    lengths = [0, 1, min(37, s), s]
-    q, k, v = qkv(4, 3, s, d, dtype, cuda_device)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
-    mask = torch.arange(s, device=cuda_device)[None, :] < lens[:, None]
-    out = launch_flash_attention(q, k, v, lens).float()
-    ref = attention_reference(q, k, v, mask).float()
+def assert_flash_close(out, ref, dtype):
+    out, ref = out.float(), ref.float()
     err = (out - ref).abs().max().item()
     if dtype == torch.float32:
         assert err <= FLASH_FP32_ABS_TOL
     else:
         assert err <= BF16_REL_TOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("s", [1, 17, 32, 77, 128, 256, 300])
+@pytest.mark.parametrize("d", [64, 128, 40, 17])  # rows of d = 17 are not on 16 bytes: plain loads
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_reference(cuda_device, s, d, dtype):
+    # lengths 0 and s, one key, one inside a 32-key tile and one on a tile
+    # edge; 5 x 3 (b, head) pairs, so at s <= 32 a CTA holds several pairs
+    # and the last CTA a pair slot with no pair
+    lengths = [0, 1, min(37, s), min(64, s), s]
+    q, k, v = qkv(len(lengths), 3, s, d, dtype, cuda_device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    mask = torch.arange(s, device=cuda_device)[None, :] < lens[:, None]
+    out = launch_flash_attention(q, k, v, lens)
+    assert_flash_close(out, attention_reference(q, k, v, mask), dtype)
 
 
 def test_flash_routes_a_non_prefix_mask_to_the_reference(cuda_device):
@@ -221,20 +228,57 @@ def test_downsample_kernel_matches_plain(cuda_device, shape, cout, dtype):
     assert_rel(out, ref, BLOCK_FP32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL)
 
 
+def depthwise_inputs(shape, dtype, device, seed=7):
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    return (tensor(rng, *shape).to(device, dtype), tensor(rng, 7, 7, 1, c, scale=0.2).to(device, dtype),
+            tensor(rng, c, scale=0.1).to(device, dtype))
+
+
+# H, W not multiples of the 16 x 16 tile; C in whole 32-channel slices (32,
+# 96, 768), past them (100), below one (3, 6, 8), odd (3), and pixel rows off
+# 16 bytes (3, 6 and 100 in bf16), which stage the halo with plain loads
 @pytest.mark.parametrize("shape", [(1, 7, 5, 8), (2, 13, 11, 32), (1, 1, 1, 96), (1, 5, 9, 6),
-                                   (1, 64, 52, 96), (2, 8, 7, 768)])
+                                   (1, 64, 52, 96), (2, 8, 7, 768), (1, 9, 17, 3), (1, 23, 37, 100),
+                                   (1, 574, 479, 96), (2, 32, 26, 768)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_depthwise_kernel_matches_plain(cuda_device, shape, dtype):
-    rng = np.random.default_rng(7)
-    c = shape[-1]
-    x = tensor(rng, *shape).to(cuda_device, dtype)
-    w = tensor(rng, 7, 7, 1, c, scale=0.2).to(cuda_device, dtype)
-    b = tensor(rng, c, scale=0.1).to(cuda_device, dtype)
+    x, w, b = depthwise_inputs(shape, dtype, cuda_device)
     before = launch_counts()["depthwise_conv7x7"]
     out = launch_depthwise_conv7x7(x, w, b)
     assert launch_counts()["depthwise_conv7x7"] == before + 1
     assert_rel(out, plain_depthwise_conv7x7(x, w, b),
                BLOCK_FP32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL)
+
+
+@pytest.mark.parametrize("case", ["flash float32", "flash bfloat16", "depthwise float32",
+                                  "depthwise bfloat16"])
+def test_back_to_back_launches_stay_exact(cuda_device, case):
+    """50 launches queued with no synchronisation, each on new inputs: a
+    double-buffered copy that left a stale tile would show at the end."""
+    kind, dtype = case.split()
+    dtype = getattr(torch, dtype)
+    calls = []
+    for i in range(50):
+        if kind == "flash":
+            s = 256
+            q, k, v = qkv(8, 12, s, 64, dtype, cuda_device, seed=i)
+            lens = torch.tensor([256, 200, 31, 1, 256, 128, 77, 255], dtype=torch.int32,
+                                device=cuda_device).roll(i)
+            calls.append(((q, k, v, lens), launch_flash_attention(q, k, v, lens)))
+        else:
+            args = depthwise_inputs((2, 32, 26, 768) if i % 2 else (2, 64, 52, 384), dtype,
+                                    cuda_device, seed=i)
+            calls.append((args, launch_depthwise_conv7x7(*args)))
+    torch.cuda.synchronize()
+    for args, out in calls:
+        if kind == "flash":
+            q, k, v, lens = args
+            mask = torch.arange(q.shape[2], device=cuda_device)[None, :] < lens[:, None]
+            assert_flash_close(out, attention_reference(q, k, v, mask), dtype)
+        else:
+            assert_rel(out, plain_depthwise_conv7x7(*args),
+                       BLOCK_FP32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL)
 
 
 @pytest.mark.parametrize("kind", ["stem", "downsample", "depthwise", "int8"])
