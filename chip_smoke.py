@@ -20,14 +20,18 @@ the single-device losses, and trains ``train_binary_class_clf`` with
 ``mmgclip_tpu_torch.train.run`` at full BERT-base width, runs ``test()``,
 re-evaluates the stored run through ``evaluate_clip.main``, serves the
 trained run, and matches a reduced-width run on the card with the
-same run on the CPU.
+same run on the CPU.  Phase 15 holds every speed knob of the tower to the
+product gates of the JAX package (``tests/test_fastpath_parity.py``): one
+checkpoint trained on plain-path features, evaluated on a feature store
+encoded through the kernels per knob, zero-shot AUC within 0.005 of the
+baseline's and the generated reports byte-identical.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks what comes out, and times every kernel beside its plain
 version, its bound and (where one exists) the one PyTorch call that computes
 the same function, plus the encode programs, ``extract()``, PNG decode, the
 global loss, the text bank, the train step and ``test()``.  The times phase
-keeps its number, 11, and runs after phases 12-14.
+keeps its number, 11, and runs after phases 12-15.
 
 Imports nothing of JAX or of ``mmgclip_tpu``.  Exits non-zero, without the
 result line, when CUDA is unavailable or any phase fails.  The last line is
@@ -160,9 +164,23 @@ def chained_ms(fn, calls: int = 20, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
+def _write_png(path: str, width: int, height: int, depth: int, rows: np.ndarray) -> None:
+    """Grayscale PNG of ``depth`` bits from filtered rows (filter byte first),
+    compressed with the standard library's zlib."""
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    data = (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+    with open(path, "wb") as fh:
+        fh.write(data)
+
+
 def write_png16(path: str, pixels: np.ndarray, paeth: bool = False) -> None:
-    """Grayscale 16-bit PNG with the standard library's zlib: every row
-    unfiltered, or every row Paeth-filtered (the slow case for decoders)."""
+    """Grayscale 16-bit PNG: every row unfiltered, or every row
+    Paeth-filtered (the slow case for decoders)."""
     h, w = pixels.shape
     rows = np.zeros((h, 1 + 2 * w), np.uint8)
     raw = pixels.astype(">u2").view(np.uint8).reshape(h, 2 * w)
@@ -178,16 +196,15 @@ def write_png16(path: str, pixels: np.ndarray, paeth: bool = False) -> None:
         rows[:, 1:] = ((cur - pred) & 0xFF).astype(np.uint8)
     else:
         rows[:, 1:] = raw
+    _write_png(path, w, h, 16, rows)
 
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
-    data = (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + chunk(b"IEND", b""))
-    with open(path, "wb") as fh:
-        fh.write(data)
+def write_png8(path: str, pixels: np.ndarray) -> None:
+    """Grayscale 8-bit PNG, every row unfiltered."""
+    h, w = pixels.shape
+    rows = np.zeros((h, 1 + w), np.uint8)
+    rows[:, 1:] = pixels
+    _write_png(path, w, h, 8, rows)
 
 
 def synthetic_mammogram(h: int, w: int, seed: int) -> np.ndarray:
@@ -222,8 +239,9 @@ def bound_ms(ops, moved, dtype, peaks, rate=None):
 
 
 def flash_rate(dtype, peaks):
-    """(operations/s, label) of the flash kernel's products: bf16 on the
-    tensor cores, fp32 as three TF32 products each (the three-pass split)."""
+    """(operations/s, label) of the products of the flash and fp / bf16
+    block kernels: bf16 on the tensor cores, fp32 as three TF32 products
+    each (the three-pass split)."""
     if dtype == torch.bfloat16:
         return peaks["bf16"], "bf16 tensor cores"
     return peaks["tf32"] / 3, "TF32 rate / 3, the three-pass split"
@@ -247,6 +265,8 @@ def rel_err(out, ref):
 
 
 def phase_block_parity(device, gen, shapes):
+    """The block against its plain version at every shape, and a second
+    launch on the same inputs bit-equal to the first."""
     from mmgclip_tpu_torch.ops.fused_block import launch_fused_block, plain_convnext_block
 
     worst = {}
@@ -257,14 +277,18 @@ def phase_block_parity(device, gen, shapes):
                 x = torch.randn(n, h, w, c, generator=gen).to(device, dtype)
                 p = block_params(c, dtype, gen, device)
                 out = launch_fused_block(x, *p, gelu_tanh=tanh)
+                again = launch_fused_block(x, *p, gelu_tanh=tanh)
                 ref = plain_convnext_block(x, *p, gelu_tanh=tanh)
                 torch.cuda.synchronize()
                 err, rel = rel_err(out, ref)
                 tol = FP32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+                same = bit_equal([again], [out])
                 log(f"  block {shape} {str(dtype)[6:]} gelu={'tanh' if tanh else 'exact'}: "
-                    f"max_abs {err:.3e} rel {rel:.3e} (tol {tol:.1e})")
-                if not rel <= tol:
-                    raise AssertionError(f"fused block {shape} {dtype} tanh={tanh}: rel {rel} > {tol}")
+                    f"max_abs {err:.3e} rel {rel:.3e} (tol {tol:.1e}); second launch "
+                    f"{'bit-equal' if same else 'DIFFERS'}")
+                if not (rel <= tol and same):
+                    raise AssertionError(f"fused block {shape} {dtype} tanh={tanh}: rel {rel} > {tol} "
+                                         f"or a second launch differs ({not same})")
                 key = (shape, dtype, tanh)
                 worst[key] = err
     return worst
@@ -706,16 +730,16 @@ def timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts):
                             t["library_ms"] = (t["library_ms"] or 0.0) + reps * library
     meta = {
         "int8": ("fused_convnext_block_int8", "mmgclip_tpu_torch/csrc/fused_block.cu",
-                 "mmgclip_tpu/ops/fused_block.py:280", store_counts,
+                 "mmgclip_tpu/ops/fused_block.py:281", store_counts,
                  "18 int8 blocks of one 2x2294x1914 feature-store bucket, bf16"),
         "stem": ("fused_stem", "mmgclip_tpu_torch/csrc/fused_stem.cu",
-                 "mmgclip_tpu/ops/fused_stem.py:98", store_counts,
+                 "mmgclip_tpu/ops/fused_stem.py:99", store_counts,
                  "the stem of one 2x2294x1914 feature-store bucket, fp32 input, bf16 weights"),
         "downsample": ("fused_ln_downsample", "mmgclip_tpu_torch/csrc/fused_downsample.cu",
-                       "mmgclip_tpu/ops/fused_downsample.py:132", store_counts,
+                       "mmgclip_tpu/ops/fused_downsample.py:134", store_counts,
                        "3 downsamples of one 2x2294x1914 feature-store bucket, bf16"),
         "depthwise": ("depthwise_conv7x7", "mmgclip_tpu_torch/csrc/depthwise_conv.cu",
-                      "mmgclip_tpu/ops/depthwise_conv.py:45", dw_counts,
+                      "mmgclip_tpu/ops/depthwise_conv.py:46", dw_counts,
                       "18 depthwise convs of one 2x1024x832 bucket, bf16; device time"),
     }
     entries = []
@@ -1074,6 +1098,209 @@ def phase_training(device, tmp, smi):
     return times
 
 
+# ----------------------------------------------------------------------
+# the product gates (tests/test_fastpath_parity.py's recipe)
+GATE_AUC_DELTA = 0.005        # every prompt's zero-shot AUC, a variant's store vs the baseline's
+GATE_MIN_AUC = 0.9            # the baseline learned the planted signal: the gate is not vacuous
+GATE_TEXT = ("{vocab_size: 4096, hidden_size: 64, num_hidden_layers: 2, num_attention_heads: 4, "
+             "intermediate_size: 128, max_position_embeddings: 64}")
+GATE_VARIANTS = {  # speed knob -> (tower config, the kernels its store must launch)
+    "fused": ({"use_fused_blocks": True}, ("fused_convnext_block",)),
+    "fused_tanh": ({"use_fused_blocks": True, "gelu": "tanh"}, ("fused_convnext_block",)),
+    "fused_int8_tanh": ({"use_fused_blocks": True, "gelu": "tanh", "quant": "int8"},
+                        ("fused_convnext_block_int8",)),
+    "fused_tanh_glue": ({"use_fused_blocks": True, "gelu": "tanh", "fuse_stem": True,
+                         "fuse_downsample": True},
+                        ("fused_convnext_block", "fused_stem", "fused_ln_downsample")),
+    "use_pallas_dwconv": ({"use_pallas_dwconv": True}, ("depthwise_conv7x7",)),
+}
+GATE_REPORT_PATIENTS = (2000000, 2000001, 2100000, 2100001)
+
+
+def write_gate_tree(root, n_per_class=16, size=32):
+    """``tests/fixtures.py::build_image_label_tree(n_benign=16, n_malignant=16,
+    image_size=32, feature_store=False, pixel_class_signal=True)`` written
+    without PIL: 8-bit PNGs whose intensity band is the class.  -> (base,
+    annotated, lists)."""
+    base = os.path.join(root, "png_archive", "2D_100micron", "0")
+    annotated = os.path.join(root, "02_data_T_regions")
+    lists = os.path.join(root, "lists")
+    for folder in ("02_benign", "02_stl"):
+        os.makedirs(os.path.join(annotated, folder))
+    os.makedirs(lists)
+
+    def region(malign=False, mass=False, arch=False, calc=False, margin=None, shape=None):
+        properties = {k: v for k, v in (("mass_margin", margin), ("mass_shape", shape)) if v}
+        return {"is_mass": mass, "is_malign": malign, "is_architectural_distortion": arch,
+                "is_calcification_cluster": calc, "is_individual_calcification": False,
+                "properties": properties}
+
+    patients = {True: [], False: []}
+    for benign in (True, False):
+        for i in range(n_per_class):
+            pid = f"{(2000000 if benign else 2100000) + i:08d}"
+            image_id = f"p{pid}02{VIEWS[i % 4]}"
+            png = os.path.join(base, pid[:2], pid, "st02", f"{image_id}.png")
+            os.makedirs(os.path.dirname(png), exist_ok=True)
+            band = (0, 128) if benign else (128, 256)
+            write_png8(png, np.random.default_rng(i).integers(*band, size=(size, size), dtype=np.uint8))
+            if benign:
+                regions = {"r0": region(mass=True, margin="Circumscribed", shape="Oval")} if i % 2 == 0 else {}
+            else:
+                regions = {"r0": region(malign=True, mass=i % 3 != 0, arch=i % 4 == 0, calc=i % 3 == 0,
+                                        margin="Spiculated" if i % 3 != 0 else None,
+                                        shape="Irregular" if i % 3 != 0 else None)}
+            with open(os.path.join(annotated, "02_benign" if benign else "02_stl",
+                                   f"{image_id}.json"), "w") as fh:
+                json.dump({f"{image_id}_png": {"regions": regions}}, fh)
+            patients[benign].append(pid)
+    for benign, name in ((True, "normal_patients.txt"), (False, "malignant_patients.txt")):
+        with open(os.path.join(lists, name), "w") as fh:
+            fh.write("patient_id\n" + "\n".join(patients[benign]) + "\n")
+    return base, annotated, lists
+
+
+def gate_config(run_dir, tree, features, checkpoints, tower=None):
+    """The JAX gate's config: the micro tower on one input channel with the
+    given knobs, the tiny BERT, 10 epochs at lr 5e-3, batch 8."""
+    from mmgclip_tpu_torch.config import compose
+
+    base, annotated, lists = tree
+    knobs = {"micro": True, "in_channels": 1, **(tower or {})}
+    flow = ", ".join(f"{k}: {str(v).lower() if isinstance(v, bool) else v}" for k, v in knobs.items())
+    return compose(os.path.join(REPO, "configs"), "train_binary_class_clf", [
+        f"dataset.config.base_dataset_path={base}",
+        f"dataset.config.annotated_dataset_path={annotated}",
+        f"dataset.config.lists_dataset_path={lists}",
+        f"base.features_export_dir={features}",
+        f"base.tensorboard_export_dir={run_dir}/runs",
+        f"checkpoints.checkpoints_export_dir={checkpoints}",
+        "tokenizer.config.sequence_length=32",
+        f"networks.text_encoder.config={GATE_TEXT}",
+        f"networks.image_encoder.config={{{flow}}}",
+        "scheduler.config.epochs=10", "base.patience=10", "optimizer.config.learning_rate=5e-3",
+        "dataloader.train.batch_size=8", "dataloader.valid.batch_size=2",
+        "dataloader.test.batch_size=2"], run_dir=run_dir)
+
+
+def gate_store(device, tmp, tree, checkpoints, tag, knobs=None, expected=()):
+    """Encode the tree's feature store with ``knobs`` through
+    ``ImageFeatureExtractor.extract()``, the launch counts set to 0 just
+    before and read just after; on the card every kernel in ``expected``
+    launched once per block (stem, downsample) of every batch and no other
+    kernel did; on the CPU none did.  -> the store's directory."""
+    from mmgclip_tpu_torch.data.ingest import create_dataset_df
+    from mmgclip_tpu_torch.ingest.encode import ImageFeatureExtractor
+    from mmgclip_tpu_torch.models.convnext import ConvNeXt
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.utils.seeding import seeding
+
+    knobs = dict(knobs or {})
+    dwconv = knobs.pop("use_pallas_dwconv", False)
+    features = os.path.join(tmp, f"features_{tag}")
+    cfg = gate_config(os.path.join(tmp, f"enc_{tag}"), tree, features, checkpoints, knobs)
+    seeding(int(cfg.base.seed))
+    rows = create_dataset_df(config=cfg)
+    ex = ImageFeatureExtractor(config=cfg, dataset=rows, device=device)
+    if dwconv:  # no config key reaches use_pallas_dwconv (nor in the JAX package): same weights
+        cn = dataclasses.replace(ex.cn_config, use_pallas_dwconv=True)
+        module = ConvNeXt(cn)
+        module.load_state_dict(ex.module.state_dict())
+        ex.module, ex.cn_config = module.to(device).eval(), cn
+    reset_launch_counts()
+    stored = ex.extract()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    if stored != len(rows):
+        raise AssertionError(f"gate store {tag}: {stored} of {len(rows)} images stored")
+    batches = -(-len(rows) // ex.batch_size)  # one 32x32 bucket
+    per_batch = {"fused_stem": 1, "fused_ln_downsample": len(ex.cn_config.dims) - 1}
+    blocks = sum(ex.cn_config.depths)
+    want = {k: batches * per_batch.get(k, blocks) for k in expected} if device.type == "cuda" else {}
+    check_counts(f"gate store {tag} ({stored} images)", counts, want)
+    return features
+
+
+def gate_aucs(device, tmp, tree, checkpoints, tag, features):
+    """Zero-shot AUC per prompt of the shared checkpoint over one store (the
+    whole dataset, in order), through the ``Evaluator``."""
+    from mmgclip_tpu_torch.data.datasets import get_dataset
+    from mmgclip_tpu_torch.data.loader import DataLoaders
+    from mmgclip_tpu_torch.evaluation.evaluator import Evaluator
+    from mmgclip_tpu_torch.utils.seeding import seeding
+
+    cfg = gate_config(os.path.join(tmp, f"eval_{tag}"), tree, features, checkpoints)
+    seeding(int(cfg.base.seed))
+    dataset = get_dataset(cfg.dataset.eval.dataset.name)(config=cfg)
+    loader = DataLoaders(config=cfg, dataset_split=dataset).get_dataloader(
+        batch_size=4, shuffle=False, drop_last=False, collate_fn=dataset.collate_fn)
+    results = Evaluator(config=cfg, test_dataloader=loader, tokenizer=dataset.tokenizer,
+                        device=device).evaluate_experiment()
+    for block in results:
+        if isinstance(block, dict):
+            aucs = {k: v["auc"] for k, v in block.items() if isinstance(v, dict) and "auc" in v}
+            if aucs:
+                return aucs
+    raise AssertionError(f"gate {tag}: no AUC block in {results!r}")
+
+
+def phase_product_gates(device, tmp):
+    """The JAX package's product gates for every speed knob of the tower:
+    train one checkpoint on plain-path features (no kernel knob), encode the
+    store once per knob through its kernels, evaluate the checkpoint on each
+    store and generate the reports through ``InferenceEngine``.  Fails unless
+    the baseline's best AUC is >= 0.9, every prompt's AUC is within 0.005 of
+    the baseline's and the reports are byte-identical, for every knob.
+    Runs on the CPU too (every knob then takes the plain versions).
+    -> {store: {prompt: AUC}}."""
+    import glob
+
+    from mmgclip_tpu_torch.serving import InferenceEngine
+    from mmgclip_tpu_torch.train import run as train_run
+
+    tree = write_gate_tree(os.path.join(tmp, "gate_tree"))
+    checkpoints = os.path.join(tmp, "gate_checkpoints")
+    baseline = gate_store(device, tmp, tree, checkpoints, "baseline")
+    train_run(gate_config(os.path.join(tmp, "gate_train"), tree, baseline, checkpoints),
+              device=device)
+    engine = InferenceEngine(gate_config(os.path.join(tmp, "gate_report"), tree, baseline,
+                                         checkpoints), device=device)
+
+    def reports(features):
+        rows = []
+        for patient in GATE_REPORT_PATIENTS:
+            stored = sorted(glob.glob(os.path.join(features, "**", f"{patient:08d}", "**", "*.npy"),
+                                      recursive=True))
+            rows.append(np.load(stored[0]).reshape(-1))
+        return engine.generate_reports(np.stack(rows).astype(np.float32), seed=42)
+
+    aucs = {"baseline": gate_aucs(device, tmp, tree, checkpoints, "baseline", baseline)}
+    base_reports = reports(baseline)
+    log(f"    baseline (plain path): AUC {aucs['baseline']}; {len(base_reports)} reports")
+    failures = []
+    if not max(aucs["baseline"].values()) >= GATE_MIN_AUC:
+        failures.append(f"baseline best AUC {max(aucs['baseline'].values())} < {GATE_MIN_AUC}")
+    for tag, (knobs, kernels) in GATE_VARIANTS.items():
+        features = gate_store(device, tmp, tree, checkpoints, tag, knobs, kernels)
+        aucs[tag] = gate_aucs(device, tmp, tree, checkpoints, tag, features)
+        same = reports(features) == base_reports
+        if set(aucs[tag]) != set(aucs["baseline"]):
+            failures.append(f"{tag}: prompts {sorted(aucs[tag])}")
+            continue
+        delta = max(abs(aucs[tag][k] - v) for k, v in aucs["baseline"].items())
+        log(f"    {tag}: AUC {aucs[tag]}, max |delta| {delta:.6f} (tol {GATE_AUC_DELTA}); "
+            f"reports {'byte-identical' if same else 'DIFFER'}")
+        if not delta <= GATE_AUC_DELTA:
+            failures.append(f"{tag}: AUC moved by {delta} > {GATE_AUC_DELTA}")
+        if not same:
+            failures.append(f"{tag}: generated reports moved against the baseline's")
+    engine.close()
+    if failures:
+        raise AssertionError("product gates failed: " + "; ".join(failures))
+    return aucs
+
+
 def timing_ring(device, peaks, smi, launches, max_err):
     """The ring per (P, shape, dtype) beside its bound, its plain version and
     the library pair (torch.cat, then a copy into each output), all as device
@@ -1163,10 +1390,13 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     stage_shapes = [(2, 256, 208, 96), (2, 128, 104, 192), (2, 64, 52, 384), (2, 32, 26, 768)]
     ffdm_shape = (1, 574, 479, 96)  # 2294x1914 input after the br_pad stem
+    # the micro tower's stages on phase 15's bucket of 32 images of 32x32:
+    # C = 8 and 16 pad the mma's K, C = 768 at H = W = 1
+    micro_shapes = [(32, 8, 8, 8), (32, 4, 4, 16), (32, 2, 2, 32), (32, 1, 1, 768)]
 
     # 3. kernel 1 parity ------------------------------------------------------
     log("[3] fused_convnext_block vs plain_convnext_block")
-    block_err = phase_block_parity(device, gen, stage_shapes + [ffdm_shape])
+    block_err = phase_block_parity(device, gen, stage_shapes + [ffdm_shape] + micro_shapes)
 
     # 4. kernel 2 parity ------------------------------------------------------
     log("[4] flash_attention vs attention_reference")
@@ -1334,7 +1564,11 @@ def main() -> int:
         log("[14] training: mmgclip_tpu_torch.train.run (train_binary_class_clf), then test()")
         phase_training(device, tmp.name, smi)
 
-        # 11. times (after 12-14) --------------------------------------------------------
+        # 15. the product gates -------------------------------------------------------
+        log("[15] product gates: one checkpoint, a feature store per speed knob of the tower")
+        phase_product_gates(device, tmp.name)
+
+        # 11. times (after 12-15) --------------------------------------------------------
         log("[11] times (CUDA events, median of 10 after 3 warmup unless stated)")
         kernels = timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts,
                                block_err, flash_err)
@@ -1382,44 +1616,85 @@ def main() -> int:
     return 0
 
 
+def block_halves(x, p):
+    """Launchers of the fp / bf16 block's two halves alone on preallocated
+    buffers (``mmg_fused_block_depthwise`` into the fp32 workspace, then
+    ``mmg_fused_block_ln_mlp``), for timing each; they count no launch."""
+    from mmgclip_tpu_torch.ops import _build
+    from mmgclip_tpu_torch.ops import fused_block as fb
+
+    lib = _build.load_typed(fb._SOURCE, fb._SIGNATURES)
+    n, h, w, c = x.shape
+    ws = torch.empty((n * h * w, c), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, *p)]  # x, dwk, dwb, ns, nb, w1, b1, w2, b2, gamma
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fb._DTYPES[x.dtype]
+
+    def front():
+        _build.check(lib, lib.mmg_fused_block_depthwise(code, *ptrs[:3], ws.data_ptr(), n, h, w, c,
+                                                        stream), "block depthwise half")
+
+    def back():
+        _build.check(lib, lib.mmg_fused_block_ln_mlp(code, ws.data_ptr(), ptrs[0], *ptrs[3:],
+                                                     out.data_ptr(), n, h, w, c, fb.EPS, 0, stream),
+                     "block ln_mlp half")
+    return front, back
+
+
 def timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts, block_err, flash_err):
     import torch.nn.functional as F
 
+    from mmgclip_tpu_torch.ops.depthwise_conv import launch_depthwise_conv7x7
     from mmgclip_tpu_torch.ops.flash_attention import attention_reference, launch_flash_attention
     from mmgclip_tpu_torch.ops.fused_block import launch_fused_block, plain_convnext_block
 
-    # kernel 1 per shape; the JSON entry is the 18-block work of one encode
-    # of a 2 x 1024x832 bucket in bf16 (depths 3/3/9/3), the main path's case
+    # kernel 1 per shape as device time per call of back-to-back calls,
+    # beside its two halves, the standalone depthwise tile (T output: the
+    # difference to the front half is the fp32 hand-off), the plain version
+    # and the bound (fp32 at the TF32 / 3 rate); the JSON entry is the
+    # 18-block work of one encode of a 2 x 1024x832 bucket in bf16 (depths
+    # 3/3/9/3), the main path's case
     depths = (3, 3, 9, 3)
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0, "bytes": 0.0,
+             "depthwise_ms": 0.0, "ln_mlp_ms": 0.0}
     for shape in stage_shapes + [ffdm_shape]:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(*shape, generator=gen).to(device, dtype)
             p = block_params(shape[-1], dtype, gen, device)
-            ms = time_ms(lambda: launch_fused_block(x, *p))
-            plain = time_ms(lambda: plain_convnext_block(x, *p))
+            front, back = block_halves(x, p)
+            ms = device_ms(lambda: launch_fused_block(x, *p))
+            front_ms, back_ms = device_ms(front), device_ms(back)
+            dw_ms = device_ms(lambda: launch_depthwise_conv7x7(x, p[0], p[1]))
+            plain = device_ms(lambda: plain_convnext_block(x, *p))
             ops, moved = block_work(*shape, 2 if dtype == torch.bfloat16 else 4)
-            bms, by = bound_ms(ops, moved, dtype, peaks)
-            log(f"    fused_convnext_block {shape} {str(dtype)[6:]}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-                f"bound {bms:.4f} ms ({by}), {ops / ms / 1e9:.2f} TFLOP/s")
+            rate, rate_label = flash_rate(dtype, peaks)
+            bms, by = bound_ms(ops, moved, dtype, peaks, rate)
+            log(f"    fused_convnext_block {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms = depthwise half "
+                f"{front_ms:.4f} (standalone tile {dw_ms:.4f}) + ln_mlp {back_ms:.4f} "
+                f"({ops / back_ms / 1e9:.1f} TFLOP/s); plain {plain:.4f} ms; bound {bms:.4f} ms ({by}; "
+                f"{rate_label}); device time per call")
             if dtype == torch.bfloat16 and shape in stage_shapes:
                 reps = depths[stage_shapes.index(shape)]
-                total["ms"] += reps * ms
-                total["plain_ms"] += reps * plain
-                total["bound_ms"] += reps * bms
-                total["ops"] += reps * ops
-                total["bytes"] += reps * moved
+                for key, value in (("ms", ms), ("plain_ms", plain), ("bound_ms", bms), ("ops", ops),
+                                   ("bytes", moved), ("depthwise_ms", front_ms),
+                                   ("ln_mlp_ms", back_ms)):
+                    total[key] += reps * value
     bound_by = "operations" if total["ops"] / peaks["bf16"] >= total["bytes"] / peaks["bytes"] else "bytes"
+    log(f"    fused_convnext_block, 18 blocks of 2 x 1024x832 bf16: {total['ms']:.4f} ms (depthwise "
+        f"halves {total['depthwise_ms']:.4f}, ln_mlp halves {total['ln_mlp_ms']:.4f}), plain "
+        f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms; device time")
     block_entry = {
         "name": "fused_convnext_block", "route": "cuda",
         "source": "mmgclip_tpu_torch/csrc/fused_block.cu",
-        "replaces": "mmgclip_tpu/ops/fused_block.py:251",
+        "replaces": "mmgclip_tpu/ops/fused_block.py:252",
         "launches": counts["fused_convnext_block"],
         "max_abs_err": max(v for (shape, dt, _t), v in block_err.items()
                            if dt == torch.bfloat16 and shape in stage_shapes),
         "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
         "bound_by": bound_by, "library_ms": None,
-        "work": "18 blocks of one 2x1024x832 encode bucket, bf16",
+        "depthwise_ms": total["depthwise_ms"], "ln_mlp_ms": total["ln_mlp_ms"],
+        "work": "18 blocks of one 2x1024x832 encode bucket, bf16; device time",
     }
 
     # kernel 2: the serving path's prompt-bank batch (fp32, pad-trimmed s);
@@ -1453,7 +1728,7 @@ def timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts, b
                 entry = {
                     "name": "flash_attention", "route": "cuda",
                     "source": "mmgclip_tpu_torch/csrc/flash_attention.cu",
-                    "replaces": "mmgclip_tpu/ops/flash_attention.py:134",
+                    "replaces": "mmgclip_tpu/ops/flash_attention.py:135",
                     "launches": counts["flash_attention"],
                     "max_abs_err": max(v for (_s, dt), v in flash_err.items() if dt == torch.float32),
                     "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": sdpa,

@@ -1,19 +1,24 @@
-"""Time the flash attention and depthwise kernels of two checkouts on one card.
+"""Time the flash attention, depthwise and fp / bf16 block kernels of two
+checkouts on one card.
 
     python3 kernel_ab.py --parent <directory holding the other checkout> [--out <json>]
 
-Builds ``mmgclip_tpu_torch/csrc/{flash_attention,depthwise_conv}.cu`` of the
-other checkout (unpacked with ``git archive``) with this tree's ``nvcc``
-flags and loads both trees' libraries through ctypes: the C entry points
-``mmg_flash_attention`` and ``mmg_depthwise_conv7x7`` keep one signature.
-Each case is the main path's work of a kernel, timed as device time per
-call of back-to-back calls (``chip_smoke.device_ms``) in the order parent,
-change, change, parent, on the same inputs and preallocated outputs:
+Builds ``mmgclip_tpu_torch/csrc/{flash_attention,depthwise_conv,fused_block}.cu``
+of the other checkout (unpacked with ``git archive``) with this tree's
+``nvcc`` flags and loads both trees' libraries through ctypes, each tree's
+entry points typed by that tree's own ``_SIGNATURES`` (read from its
+``ops/*.py`` source): ``mmg_fused_block`` gained a workspace pointer, so the
+block's call passes one only where the tree's signature has it.  Each case
+is the main path's work of a kernel, timed as device time per call of
+back-to-back calls (``chip_smoke.device_ms``) in the order parent, change,
+change, parent, on the same inputs and preallocated outputs:
 
 * flash: the serving path's prompt-bank batch (b=28, s=32 after the pad
   trim) and BERT-base at b=8 s=256 with phase 7's lengths, fp32 and bf16;
 * depthwise: the 18 convs of a 2 x 1024x832 bucket (depths 3/3/9/3), bf16
-  and fp32, and the full-field stage-1 shape alone.
+  and fp32, and the full-field stage-1 shape alone;
+* block: the 18 fp / bf16 blocks of the same bucket, bf16 and fp32, and the
+  full-field stage-1 shape alone.
 
 The two trees' outputs are held against each other with chip_smoke's
 tolerances.  One line per case is printed and all of them are written to
@@ -23,6 +28,7 @@ tolerances.  One line per case is printed and all of them are written to
 from __future__ import annotations
 
 import argparse
+import ast
 import ctypes
 import json
 import math
@@ -40,36 +46,58 @@ DEPTHS = (3, 3, 9, 3)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+KERNELS = {  # source -> the ops module that registers its entry points
+    "flash_attention.cu": "flash_attention",
+    "depthwise_conv.cu": "depthwise_conv",
+    "fused_block.cu": "fused_block",
+}
+EPS = 1e-6  # the block's LayerNorm epsilon (ops.fused_block.EPS)
+
+
+def tree_signatures(root: str, module: str) -> dict:
+    """``_SIGNATURES`` of ``mmgclip_tpu_torch/ops/<module>.py`` in the tree at
+    ``root``, read from its source (the dict literal over _I, _P, _F)."""
+    path = os.path.join(root, "mmgclip_tpu_torch", "ops", f"{module}.py")
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "_SIGNATURES"
+                                                for t in node.targets):
+            names = {"_I": ctypes.c_int, "_P": ctypes.c_void_p, "_F": ctypes.c_float, "ctypes": ctypes}
+            return eval(compile(ast.Expression(node.value), path, "eval"), names)
+    raise KeyError(f"no _SIGNATURES in {path}")
+
+
+def typed(lib, signatures):
+    for name, argtypes in signatures.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
 def build_parent(parent: str, out_dir: str) -> dict:
-    """The other checkout's two libraries, built in parallel and typed."""
-    from mmgclip_tpu_torch.ops import _build, depthwise_conv, flash_attention
+    """The other checkout's libraries, built in parallel and typed."""
+    from mmgclip_tpu_torch.ops import _build
 
     csrc = os.path.join(parent, "mmgclip_tpu_torch", "csrc")
     jobs = {}
-    for source, module in (("flash_attention.cu", flash_attention),
-                           ("depthwise_conv.cu", depthwise_conv)):
+    for source in KERNELS:
         target = os.path.join(out_dir, "lib" + source.replace(".cu", ".so"))
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", target, os.path.join(csrc, source)]
-        jobs[source] = (target, module, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                         stderr=subprocess.STDOUT, text=True))
+        jobs[source] = (target, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for source, (target, module, proc) in jobs.items():
+    for source, (target, proc) in jobs.items():
         output, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the parent's {source}:\n{output}")
-        lib = ctypes.CDLL(target)
-        for name, argtypes in module._SIGNATURES.items():
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
-        libs[source] = lib
+        libs[source] = typed(ctypes.CDLL(target), tree_signatures(parent, KERNELS[source]))
     return libs
 
 
 def change_libs() -> dict:
-    from mmgclip_tpu_torch.ops import _build, depthwise_conv, flash_attention
+    from mmgclip_tpu_torch.ops import _build
 
-    return {"flash_attention.cu": _build.load_typed("flash_attention.cu", flash_attention._SIGNATURES),
-            "depthwise_conv.cu": _build.load_typed("depthwise_conv.cu", depthwise_conv._SIGNATURES)}
+    return {source: _build.load_typed(source, tree_signatures(REPO, module))
+            for source, module in KERNELS.items()}
 
 
 def prompt_bank_lengths():
@@ -106,6 +134,24 @@ def depthwise_items(shapes_reps, dtype, rng, device):
     return items
 
 
+def block_items(shapes_reps, dtype, rng, device):
+    """chip_smoke.block_params's scales, from numpy; + the fp32 workspace."""
+    items = []
+    for shape, reps in shapes_reps:
+        c = shape[-1]
+
+        def r(*s, scale=1.0, offset=0.0, dt=dtype):
+            return torch.from_numpy((offset + rng.standard_normal(s) * scale).astype(np.float32)).to(device, dt)
+
+        x = r(*shape)
+        params = [r(7, 7, 1, c, scale=0.2), r(c, scale=0.1), r(c, scale=0.1, offset=1.0, dt=torch.float32),
+                  r(c, scale=0.1, dt=torch.float32), r(c, 4 * c, scale=c ** -0.5), r(4 * c, scale=0.1),
+                  r(4 * c, c, scale=(4 * c) ** -0.5), r(c, scale=0.1), r(c, scale=0.5)]
+        ws = torch.empty((x.numel() // c, c), dtype=torch.float32, device=device)
+        items.append(((x, *params, ws), torch.empty_like(x), reps))
+    return items
+
+
 def launcher(kind, lib):
     stream = torch.cuda.current_stream().cuda_stream
     if kind == "flash":
@@ -115,12 +161,20 @@ def launcher(kind, lib):
             return lib.mmg_flash_attention(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                                            v.data_ptr(), lens.data_ptr(), out.data_ptr(), b, h, s,
                                            d, 1.0 / math.sqrt(d), stream)
-    else:
+    elif kind == "depthwise":
         def call(args, out):
             x, w, b = args
             n, h, wd, c = x.shape
             return lib.mmg_depthwise_conv7x7(DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
                                              b.data_ptr(), out.data_ptr(), n, h, wd, c, stream)
+    else:
+        with_ws = len(lib.mmg_fused_block.argtypes) == 20  # the parent's has no workspace
+
+        def call(args, out):
+            *tensors, ws = args
+            n, h, wd, c = tensors[0].shape
+            ptrs = [t.data_ptr() for t in tensors] + [out.data_ptr()] + ([ws.data_ptr()] if with_ws else [])
+            return lib.mmg_fused_block(DTYPE_CODES[tensors[0].dtype], *ptrs, n, h, wd, c, EPS, 0, stream)
 
     def work(items):
         for args, out, reps in items:
@@ -176,10 +230,16 @@ def main(argv=None) -> int:
                           depthwise_items(list(zip(bucket, DEPTHS)), dtype, rng, device)))
         cases.append((f"depthwise stage 1 {ffdm}", "depthwise", torch.bfloat16,
                       depthwise_items([(ffdm, 1)], torch.bfloat16, rng, device)))
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"block 18 blocks of 2x{PAIR_HW[0]}x{PAIR_HW[1]}", "block", dtype,
+                          block_items(list(zip(bucket, DEPTHS)), dtype, rng, device)))
+        cases.append((f"block stage 1 {ffdm}", "block", torch.bfloat16,
+                      block_items([(ffdm, 1)], torch.bfloat16, rng, device)))
 
         rows = []
         for label, kind, dtype, items in cases:
-            source = "flash_attention.cu" if kind == "flash" else "depthwise_conv.cu"
+            source = {"flash": "flash_attention.cu", "depthwise": "depthwise_conv.cu",
+                      "block": "fused_block.cu"}[kind]
             runs = {"parent": launcher(kind, parent[source]), "change": launcher(kind, change[source])}
             outs = {}
             for tree, run in runs.items():  # one checked call each: the outputs to compare

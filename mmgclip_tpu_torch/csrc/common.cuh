@@ -1,8 +1,10 @@
 // Helpers shared by the kernels (fused_block.cu, fused_stem.cu,
-// fused_downsample.cu, depthwise_conv.cu, flash_attention.cu;
-// ring_all_gather.cu takes only the error-string export).  Each source still
-// builds into its own shared library; ops/_build.py hashes this header into
-// every library's key, so a change here rebuilds them all.
+// fused_downsample.cu, depthwise_conv.cu / depthwise_tile.cuh,
+// flash_attention.cu; ring_all_gather.cu takes only the error-string
+// export), among them the tensor-core fragments of flash_attention.cu and
+// fused_block.cu's ln_mlp kernel.  Each source still builds into its own
+// shared library; ops/_build.py hashes every csrc/*.cuh into every
+// library's key, so a change here rebuilds them all.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,6 +82,71 @@ __device__ __forceinline__ void cp_async_commit() {
 // wait until at most N of this thread's committed groups are still in flight
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- tensor cores (mma.sync) ------------------------------------------
+// Fragment layouts of m16n8k16 (bf16) and m16n8k8 (tf32), lane = 4 * g + t:
+// A a0..a3 = (row g, k lo), (row g + 8, k lo), (row g, k hi), (row g + 8,
+// k hi); B b0, b1 = (k lo, column g), (k hi, column g); C c0, c1 = row g,
+// columns 2t, 2t + 1 and c2, c3 = row g + 8.  bf16: k lo = 2t, 2t + 1 and
+// k hi = 8 + 2t, 9 + 2t (pairs packed in one register); tf32: k lo = t and
+// k hi = t + 4.
+
+__device__ __forceinline__ unsigned tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x -> (tf32(x), tf32(x - tf32(x)))
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// three-pass TF32 product: small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ahi)[4],
+                                           const unsigned (&alo)[4], unsigned bhi0,
+                                           unsigned bhi1, unsigned blo0, unsigned blo1) {
+  mma_tf32(c, alo, bhi0, bhi1);
+  mma_tf32(c, ahi, blo0, blo1);
+  mma_tf32(c, ahi, bhi0, bhi1);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// two floats -> bf16x2 (round to nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
 }
 
 // Raise a kernel's dynamic shared memory limit on the current device to the

@@ -189,7 +189,7 @@ class StudyReportDataset:
     def __init__(self, config, split: Optional[str] = None):
         raise NotImplementedError(
             "StudyReportDataset waits for data/reports.py (map_path_to_features) and the "
-            "encode_studies slice of the port (ROADMAP.md, queue 1 item 2)")
+            "encode_studies slice of the port (ROADMAP.md, queue 1 item 5)")
 
 
 DATASETS.add("StudyReportDataset", StudyReportDataset)

@@ -248,7 +248,7 @@ class Tokenizer:
                 _word_bounded(marker) for marker in _SENTENCEPIECE_MARKERS):
             raise NotImplementedError(
                 f"Tokenizer {name!r} needs a BPE or SentencePiece backend, which "
-                "the PyTorch port does not have yet (ROADMAP.md, queue 1 item 2).")
+                "the PyTorch port does not have yet (ROADMAP.md, queue 1 item 8).")
         logger.info(f"Using in-repo WordPiece tokenizer for {name!r}.")
         return cls(WordPieceTokenizer(), sequence_length, name)
 

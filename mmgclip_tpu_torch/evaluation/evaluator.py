@@ -14,8 +14,9 @@ configured evaluation methods per enum class —
 
 The metrics are the JAX package's numpy code on the same numpy RNG.  Plots
 need matplotlib; where it does not import, each plot is skipped with a
-warning, as in the JAX package.  ``evaluate_cnn`` waits for the ConvNeXt
-classifier head (ROADMAP.md).
+warning, as in the JAX package.  ``evaluate_cnn`` and its ``cnn_eval`` path
+are not ported yet (ROADMAP.md, queue 1 item 4); the ConvNeXt classifier
+head they need is (``models/convnext.py``).
 """
 
 from __future__ import annotations

@@ -78,7 +78,7 @@ class MMGCLIP(nn.Module):
         if image_encoder_name != "ConvNextTiny":
             raise NotImplementedError(
                 f"image encoder {image_encoder_name!r} is not ported yet; the port "
-                "serves the ConvNextTiny feature path (ROADMAP.md, queue 1 item 11)")
+                "serves the ConvNextTiny feature path (ROADMAP.md, queue 1 item 9)")
         self.image_encoder_name = image_encoder_name
         self.image_features_dimension = int(config.networks.image_encoder.image_features_dimension)
 
@@ -86,7 +86,7 @@ class MMGCLIP(nn.Module):
         if text_encoder_name != "BertEncoder":
             raise NotImplementedError(
                 f"text encoder {text_encoder_name!r} is not ported yet (ROADMAP.md, "
-                "queue 1 item 11)")
+                "queue 1 item 9)")
         self.bert_config = _bert_config_from(config, vocab_size)
         self.text_module = BertEncoder(self.bert_config, torch.Generator().manual_seed(seed))
         # converted text-tower weights: flax bytes of {"params": ...}, the

@@ -5,7 +5,9 @@
 Counterpart of mmgclip_tpu/ops/fused_block.py.  On a CUDA tensor
 ``fused_convnext_block`` launches ``csrc/fused_block.cu`` (one grid for every
 image size: the TPU's whole-image, row-banded and pad-to-band routes are not
-needed, see the source's header); on a CPU tensor it runs
+needed, see the source's header): the depthwise halo tile of
+``csrc/depthwise_tile.cuh`` into an fp32 workspace that the wrapper
+allocates, then ``ln_mlp`` on the tensor cores.  On a CPU tensor it runs
 ``plain_convnext_block``, the plain version of the JAX ``_lax_block``.  The
 kernel mirrors the JAX kernel's rounding points: fp32 taps and LayerNorm, the
 LN output rounded to the weight dtype before pw1, the GELU output rounded
@@ -61,9 +63,12 @@ def plain_convnext_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, eps=EPS,
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _SIGNATURES = {
-    "mmg_fused_block": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P],
+    "mmg_fused_block": [_I] + [_P] * 12 + [_I, _I, _I, _I, _F, _I, _P],
+    "mmg_fused_block_depthwise": [_I] + [_P] * 4 + [_I, _I, _I, _I, _P],
+    "mmg_fused_block_ln_mlp": [_I] + [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P],
     "mmg_fused_block_int8": [_I] + [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
 }
+MAX_C = 1536  # ln_mlp holds 96 output channels a warp, at most 16 warps across
 
 
 def _check_args(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g):
@@ -90,19 +95,27 @@ def _check_args(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g):
 
 
 def launch_fused_block(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=False):
-    """Launch the CUDA kernel (CUDA tensors only; raises on any failure)."""
+    """Launch the CUDA kernels (CUDA tensors only; raises on any failure):
+    the depthwise front half into an fp32 workspace [n*H*W, C] from torch's
+    caching allocator, then ``ln_mlp``.  One count per call."""
     if not x.is_cuda:
         raise ValueError("launch_fused_block needs CUDA tensors")
     _check_args(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g)
-    args = [t.contiguous() for t in (x, dwk, dwb, ns, nb, w1, b1, w2, b2, g)]
-    out = torch.empty_like(args[0])
     n, h, w, c = x.shape
+    if c > MAX_C:
+        raise ValueError(f"fused_convnext_block takes C <= {MAX_C}, got C={c}")
+    # the kernels read and write by 8- and 16-byte vectors: a view that
+    # starts off a 16-byte boundary is copied to a fresh allocation
+    args = [t.contiguous() for t in (x, dwk, dwb, ns, nb, w1, b1, w2, b2, g)]
+    args = [t if t.data_ptr() % 16 == 0 else t.clone() for t in args]
+    out = torch.empty_like(args[0])
+    workspace = torch.empty((n * h * w, c), dtype=torch.float32, device=x.device)
     lib = load_typed(_SOURCE, _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = lib.mmg_fused_block(
             _DTYPES[x.dtype], *[t.data_ptr() for t in args],
-            out.data_ptr(), n, h, w, c, EPS, int(bool(gelu_tanh)), stream)
+            out.data_ptr(), workspace.data_ptr(), n, h, w, c, EPS, int(bool(gelu_tanh)), stream)
     check(lib, code, "fused_convnext_block")
     count_launch("fused_convnext_block")
     return out

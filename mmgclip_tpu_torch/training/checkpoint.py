@@ -5,11 +5,18 @@ A checkpoint is a pickle of ``{epoch, val_loss, best_score, counter, params,
 opt_state, rng_key, extra}`` whose ``params`` are flax msgpack bytes
 (``utils.flax_msgpack``; the pickle holds only builtin types), so the JAX
 package's ``load_checkpoint`` reads the port's files and the port reads the
-JAX package's.  The optimizer state and the RNG state do not cross: the port
-writes its own (the AdamW count and moments as flax msgpack bytes, the
-``torch.Generator`` state as bytes) under ``torch_opt_state`` /
-``torch_rng_state`` and leaves
-``opt_state`` / ``rng_key`` empty, which the JAX loader skips.
+JAX package's.
+
+The AdamW state crosses both ways.  ``opt_state`` holds the flax bytes of
+``optax.inject_hyperparams(optax.adamw)``'s state over the trainable tree
+(``mmgclip_tpu/training/optim.py``), which the JAX loader restores with its
+own template: the injected hyperparams, the outer count, and the inner
+``ScaleByAdamState`` count and moments by parameter path.  ``load_checkpoint``
+maps that layout onto the port's ``AdamW.state_dict()``.  The port also
+keeps its own copy under ``torch_opt_state``.  The RNG state does not cross:
+the JAX dropout key is a threefry key, which no ``torch.Generator`` state
+reproduces, so the port writes its generator's bytes under
+``torch_rng_state`` and leaves ``rng_key`` empty, which the JAX loader skips.
 """
 
 from __future__ import annotations
@@ -18,9 +25,67 @@ import os
 import pickle
 from typing import Any, Dict, Optional
 
+import numpy as np
+
 from ..utils.flax_msgpack import from_bytes, to_bytes
 from ..utils.logging import logger
 from ..utils.seeding import create_directory_if_not_exists
+from ..weights import flatten_tree
+from .optim import B1, B2, EPS
+
+# optax.adamw's hyperparameters that the port keeps as constants (AdamW's
+# defaults); eps_root is optax's default
+_FIXED_HYPERPARAMS = {"b1": B1, "b2": B2, "eps": EPS, "eps_root": 0.0}
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"a.b": leaf} -> {"a": {"b": leaf}} (the trainable tree's paths)."""
+    tree: Dict[str, Any] = {}
+    for name, value in flat.items():
+        node = tree
+        *parents, leaf = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.asarray(value)
+    return tree
+
+
+def optax_adamw_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """``AdamW.state_dict()`` -> the state dict flax writes for
+    ``optax.inject_hyperparams(optax.adamw)``'s state: ``count``,
+    ``hyperparams``, ``hyperparams_states`` and ``inner_state`` (the
+    ``ScaleByAdamState`` and the two empty states of weight decay and
+    scaling by the rate)."""
+    count = np.asarray(state["count"], np.int32)
+    hyperparams = {name: np.asarray(value, np.float32) for name, value in _FIXED_HYPERPARAMS.items()}
+    for name in ("learning_rate", "weight_decay"):
+        hyperparams[name] = np.asarray(state["hyperparams"][name], np.float32)
+    adam = {"count": count, "mu": _nest(state["mu"]), "nu": _nest(state["nu"])}
+    return {"count": count, "hyperparams": hyperparams, "hyperparams_states": {},
+            "inner_state": {"0": adam, "1": {}, "2": {}}}
+
+
+def adamw_state_from_optax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The decoded ``opt_state`` of a JAX checkpoint -> ``AdamW.state_dict()``
+    layout (moments by dotted parameter name).  Raises for a layout the
+    port's AdamW does not have."""
+    inner = tree.get("inner_state") if isinstance(tree, dict) else None
+    if not isinstance(inner, dict) or "hyperparams" not in tree or "mu" not in inner.get("0", {}):
+        raise NotImplementedError(
+            "this checkpoint's optimizer state is not optax.inject_hyperparams(optax.adamw) "
+            "over the trainable tree (the freeze_mask chain of the ResNet fine-tune, "
+            "optax.chain(optax.masked(...), ...), is not ported: the port refuses that "
+            "tower); resume it with the JAX package")
+    hyperparams = tree["hyperparams"]
+    for name, value in _FIXED_HYPERPARAMS.items():
+        if np.float32(hyperparams[name]) != np.float32(value):
+            raise ValueError(f"checkpoint AdamW {name}={float(hyperparams[name])}, "
+                             f"the port's AdamW has {value}")
+    adam = inner["0"]
+    return {"count": np.asarray(adam["count"], np.int32),
+            "hyperparams": {name: np.asarray(hyperparams[name], np.float32)
+                            for name in ("learning_rate", "weight_decay")},
+            "mu": flatten_tree(adam["mu"]), "nu": flatten_tree(adam["nu"])}
 
 
 def save_checkpoint(path: str, params: Dict[str, Any], opt_state: Optional[Dict] = None,
@@ -36,7 +101,7 @@ def save_checkpoint(path: str, params: Dict[str, Any], opt_state: Optional[Dict]
         "best_score": best_score,
         "counter": counter,
         "params": to_bytes(params),
-        "opt_state": None,
+        "opt_state": to_bytes(optax_adamw_state(opt_state)) if opt_state is not None else None,
         "rng_key": None,
         "extra": extra or {},
         "torch_opt_state": to_bytes(opt_state) if opt_state is not None else None,
@@ -51,9 +116,10 @@ def save_checkpoint(path: str, params: Dict[str, Any], opt_state: Optional[Dict]
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Checkpoint file (either package's) -> dict whose ``params`` is a nested
-    dict of numpy arrays; ``opt_state`` (flax bytes decoded) when the JAX
-    package wrote one, ``torch_opt_state`` / ``torch_rng_state`` when the port
-    did.  Load the params into a model with ``weights.load_clip_params``."""
+    dict of numpy arrays; ``opt_state`` (in ``AdamW.state_dict()``'s layout)
+    when the file holds one, ``torch_opt_state`` / ``torch_rng_state`` when
+    the port wrote it.  Load the params into a model with
+    ``weights.load_clip_params``."""
     with open(path, "rb") as fh:
         state = pickle.load(fh)
     out: Dict[str, Any] = {
@@ -65,7 +131,7 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
         "params": from_bytes(state["params"]),
     }
     if state.get("opt_state") is not None:
-        out["opt_state"] = from_bytes(state["opt_state"])
+        out["opt_state"] = adamw_state_from_optax(from_bytes(state["opt_state"]))
     if state.get("rng_key") is not None:
         out["rng_key"] = list(state["rng_key"])
     if state.get("torch_opt_state") is not None:

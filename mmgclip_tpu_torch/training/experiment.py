@@ -422,22 +422,30 @@ class ClassifierExperiment:
         return bytes(self.generator.get_state().cpu().numpy().tobytes())
 
     def resume(self) -> bool:
-        """Restore the train state if a checkpoint exists.  A checkpoint of the
-        JAX package restores params and bookkeeping; its optax state and
-        PRNG key do not cross (ROADMAP.md), so AdamW and dropout restart."""
+        """Restore the train state if a checkpoint exists.  A checkpoint of
+        either package restores params, bookkeeping and the AdamW count,
+        moments and hyperparams; a JAX checkpoint's dropout key (threefry)
+        does not map onto a ``torch.Generator``, so dropout then restarts
+        from the seeded generator."""
         from ..weights import load_clip_params
 
         if not os.path.isfile(self.ckp_path):
             return False
         state = load_checkpoint(self.ckp_path)
         load_clip_params(self.model, state["params"])
-        if "torch_opt_state" in state:
-            self.optimizer.load_state_dict(state["torch_opt_state"])
+        opt_state = state.get("torch_opt_state", state.get("opt_state"))
+        if opt_state is not None:
+            self.optimizer.load_state_dict(opt_state)
         else:
-            logger.warning("Checkpoint has no PyTorch optimizer state; AdamW restarts from zero moments.")
+            logger.warning("Checkpoint has no optimizer state; AdamW restarts from zero moments.")
         if "torch_rng_state" in state:
             self.generator.set_state(torch.frombuffer(bytearray(state["torch_rng_state"]),
                                                       dtype=torch.uint8))
+        else:
+            logger.warning(
+                "Checkpoint has no torch.Generator state: a JAX checkpoint's dropout key is a "
+                "threefry key, which does not map onto a torch.Generator; dropout restarts "
+                "from the seeded generator.")
         self.current_epoch = state["epoch"] + 1
         self.early_stopper.best_score = state["best_score"]
         self.early_stopper.counter = state["counter"]

@@ -19,6 +19,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults
+
 
 class AdamW:
     """AdamW over a dict ``name -> Parameter``; ``trainable`` (same keys,
@@ -26,7 +28,7 @@ class AdamW:
     ``optax.masked`` + ``set_to_zero`` chain does."""
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], learning_rate: float,
-                 weight_decay: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float, b1: float = B1, b2: float = B2, eps: float = EPS,
                  trainable: Optional[Dict[str, bool]] = None):
         self.params = params
         device = next(iter(params.values())).device

@@ -8,11 +8,14 @@ machine without it, where the repository's conftest cannot load:
 
 Tolerances: fp32 1e-4 relative to the largest output (the block, stem,
 downsample and depthwise kernels) and 1e-5 absolute (attention), TF32 off;
+a second launch of the block on the same inputs bit-equal to the first;
 bf16 two bf16 steps of the largest output (the two sides round at different
 points); the int8 block 2**-5 relative against its same-partition plain
 version (a rounding flip moves a value by one quantisation step); the ring
 all-gather bit-equal (it copies), and the global losses through it within
-1e-6 relative (loss) and 1e-5 (gradients) of the single-device losses.
+1e-6 relative (loss) and 1e-5 (gradients) of the single-device losses; the
+product gates of ``chip_smoke.py`` phase 15 (zero-shot AUC within 0.005 and
+byte-identical reports for every speed knob of the tower).
 """
 
 import numpy as np
@@ -85,8 +88,14 @@ def block_inputs(shape, dtype, device, seed=0):
     return x, [t.to(device, torch.float32 if i in (2, 3) else dtype) for i, t in enumerate(params)]
 
 
-@pytest.mark.parametrize("shape", [(1, 7, 5, 8), (2, 13, 11, 32), (1, 1, 1, 96),
-                                   (1, 64, 52, 96), (2, 64, 52, 384), (2, 8, 7, 768)])
+# C = 8 and 16 pad the mma's K (the micro tower); (3, 5, 7, 96) ends inside a
+# row tile that straddles images; C = 20 is not a multiple of 16, and its
+# bf16 rows of W2 are not 16-byte aligned (plain loads); (1, 574, 479, 96)
+# is the full-field stage 1
+@pytest.mark.parametrize("shape", [(1, 7, 5, 8), (1, 4, 4, 16), (2, 13, 11, 32), (1, 1, 1, 96),
+                                   (1, 64, 52, 96), (2, 64, 52, 384), (2, 8, 7, 768),
+                                   (2, 32, 26, 768), (32, 1, 1, 768), (3, 5, 7, 96), (2, 13, 11, 20),
+                                   (1, 574, 479, 96)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gelu_tanh", [False, True])
 def test_block_kernel_matches_plain(cuda_device, shape, dtype, gelu_tanh):
@@ -97,6 +106,23 @@ def test_block_kernel_matches_plain(cuda_device, shape, dtype, gelu_tanh):
     ref = plain_convnext_block(x, *params, gelu_tanh=gelu_tanh).float()
     tol = BLOCK_FP32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
     assert (out - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 52, 384), (2, 32, 26, 768), (3, 5, 7, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernel_repeats_its_bits(cuda_device, shape, dtype):
+    """No atomics and a fixed order of sums: two launches, the same bits."""
+    x, params = block_inputs(shape, dtype, cuda_device, seed=3)
+    first = launch_fused_block(x, *params)
+    second = launch_fused_block(x, *params)
+    assert torch.equal(first.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       second.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+def test_block_kernel_refuses_channels_past_its_tiles(cuda_device):
+    x, params = block_inputs((1, 1, 1, 1540), torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="C <= 1536"):
+        launch_fused_block(x, *params)
 
 
 def test_block_backward_runs_the_plain_math(cuda_device):
@@ -252,7 +278,7 @@ def test_depthwise_kernel_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.parametrize("case", ["flash float32", "flash bfloat16", "depthwise float32",
-                                  "depthwise bfloat16"])
+                                  "depthwise bfloat16", "block float32", "block bfloat16"])
 def test_back_to_back_launches_stay_exact(cuda_device, case):
     """50 launches queued with no synchronisation, each on new inputs: a
     double-buffered copy that left a stale tile would show at the end."""
@@ -266,19 +292,25 @@ def test_back_to_back_launches_stay_exact(cuda_device, case):
             lens = torch.tensor([256, 200, 31, 1, 256, 128, 77, 255], dtype=torch.int32,
                                 device=cuda_device).roll(i)
             calls.append(((q, k, v, lens), launch_flash_attention(q, k, v, lens)))
-        else:
+        elif kind == "depthwise":
             args = depthwise_inputs((2, 32, 26, 768) if i % 2 else (2, 64, 52, 384), dtype,
                                     cuda_device, seed=i)
             calls.append((args, launch_depthwise_conv7x7(*args)))
+        else:
+            x, params = block_inputs((2, 32, 26, 768) if i % 2 else (2, 64, 52, 96), dtype,
+                                     cuda_device, seed=i)
+            calls.append(((x, *params), launch_fused_block(x, *params)))
     torch.cuda.synchronize()
+    tol = BLOCK_FP32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
     for args, out in calls:
         if kind == "flash":
             q, k, v, lens = args
             mask = torch.arange(q.shape[2], device=cuda_device)[None, :] < lens[:, None]
             assert_flash_close(out, attention_reference(q, k, v, mask), dtype)
+        elif kind == "depthwise":
+            assert_rel(out, plain_depthwise_conv7x7(*args), tol)
         else:
-            assert_rel(out, plain_depthwise_conv7x7(*args),
-                       BLOCK_FP32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL)
+            assert_rel(out, plain_convnext_block(*args), tol)
 
 
 @pytest.mark.parametrize("kind", ["stem", "downsample", "depthwise", "int8"])
@@ -420,3 +452,17 @@ def test_global_losses_through_the_ring_match_single_device(cuda_device, mmgclip
     torch.testing.assert_close(loss, ref, rtol=1e-6, atol=0)
     for s, f in zip(shards, full):
         torch.testing.assert_close(torch.cat([t.grad for t in s]), f.grad, rtol=0, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# the product gates
+
+def test_product_gates_hold_on_the_card(cuda_device, tmp_path):
+    """``chip_smoke.py`` phase 15: one checkpoint trained on plain-path
+    features; a store per speed knob encoded through its kernels (each
+    launched); AUC within 0.005 of the baseline's (best >= 0.9) and the
+    reports byte-identical."""
+    import chip_smoke
+
+    aucs = chip_smoke.phase_product_gates(cuda_device, str(tmp_path))
+    assert set(aucs) == {"baseline", *chip_smoke.GATE_VARIANTS}

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no ``mmgclip_tpu``, nothing the card's
 machine lacks.
 
-An AST check over every module of ``mmgclip_tpu_torch``, ``chip_smoke.py`` and
-``kernel_ab.py`` refuses imports of the JAX package and of packages that machine does not
+An AST check over every module of ``mmgclip_tpu_torch``, ``chip_smoke.py``,
+``kernel_ab.py`` and ``block_sweep.py`` refuses imports of the JAX package and of packages that machine does not
 have, and a subprocess with those packages blocked in ``sys.modules`` (and
 matplotlib and tensorboard, which the evaluator and the scalar writer only
 try) imports every port module, runs the micro serving path on the CPU, and
@@ -26,7 +26,7 @@ BLOCKED = FORBIDDEN + ("matplotlib", "tensorboard")
 
 
 def port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")]
+    paths = [os.path.join(REPO, name) for name in ("chip_smoke.py", "kernel_ab.py", "block_sweep.py")]
     for root, _dirs, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(os.path.relpath(p, REPO) for p in paths)
@@ -115,6 +115,16 @@ def test_kernel_ab_fails_without_cuda_and_builds_nothing(tmp_path):
                             cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=120)
     assert result.returncode != 0
     assert "CUDA is not available" in result.stdout
+    assert not out.exists()
+
+
+def test_block_sweep_fails_without_cuda_and_writes_nothing(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = tmp_path / "sweep.json"
+    result = subprocess.run([sys.executable, os.path.join(REPO, "block_sweep.py"), "--out", str(out)],
+                            cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=120)
+    assert result.returncode != 0
+    assert "needs a CUDA card" in result.stderr
     assert not out.exists()
 
 
