@@ -669,6 +669,37 @@ def phase_depthwise_tower(device, engine):
     return towers, pixels, counts
 
 
+def int8_block_parts(x, p):
+    """The int8 block's parts alone, on preallocated buffers, for timing
+    each: the depthwise front half into the fp32 workspace
+    (``mmg_fused_block_depthwise``), ``mmg_fused_block_ln_mlp_int8`` on
+    weights packed once, and the wrapper's per-call quantise-and-pack of the
+    weights (``int8_weights``).  They count no launch."""
+    from mmgclip_tpu_torch.ops import _build
+    from mmgclip_tpu_torch.ops import fused_block as fb
+
+    lib = _build.load_typed(fb._SOURCE, fb._SIGNATURES)
+    n, h, w, c = x.shape
+    dwk, dwb, ns, nb, w1, b1, w2, b2, gamma = p
+    ws = torch.empty((n * h * w, c), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    w1p, ws1, w2p, ws2 = fb.int8_weights(w1, w2)
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fb._DTYPES[x.dtype]
+
+    def front():
+        _build.check(lib, lib.mmg_fused_block_depthwise(code, x.data_ptr(), dwk.data_ptr(), dwb.data_ptr(),
+                                                        ws.data_ptr(), n, h, w, c, stream),
+                     "int8 block depthwise half")
+
+    def back():
+        ptrs = [t.data_ptr() for t in (ws, x, ns, nb, w1p, ws1, b1, w2p, ws2, b2, gamma, out)]
+        _build.check(lib, lib.mmg_fused_block_ln_mlp_int8(code, *ptrs, n, h, w, c, fb.EPS, 0, stream),
+                     "int8 block ln_mlp half")
+
+    return front, back, lambda: fb.int8_weights(w1, w2)
+
+
 def timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts):
     """Each new kernel per shape beside its plain version and bound; the JSON
     entries sum one bucket's work: the feature store's 2 x 2294x1914 bucket
@@ -697,25 +728,34 @@ def timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts):
         for shape, cout in shapes:
             for dtype in (torch.bfloat16, torch.float32):
                 args = glue_inputs(kind, shape, dtype, gen, device, cout)
-                library, host = None, ""
-                if kind == "depthwise":  # device time per call of back-to-back calls
-                    ms = device_ms(lambda: launch(*args))
-                    plain_ms = device_ms(lambda: plain(*args))
+                # device time per call of back-to-back calls; the int8 plain
+                # version waits for the device itself (device_ms cannot queue
+                # it): chained calls, its stalls included
+                library, parts, extra = None, {}, ""
+                ms = device_ms(lambda: launch(*args))
+                plain_ms = (chained_ms if kind == "int8" else device_ms)(lambda: plain(*args))
+                if kind == "depthwise":
                     x, w, b = args
                     w_oihw = w.permute(3, 2, 0, 1).contiguous()
                     library = device_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, padding=3,
                                                          groups=shape[-1]))
-                    host = f"; one checked call {time_ms(lambda: launch(*args)):.4f} ms with its host time"
-                else:
-                    ms = time_ms(lambda: launch(*args))
-                    plain_ms = time_ms(lambda: plain(*args))
+                if kind == "int8":  # the two launches alone, and the wrapper's weight preparation
+                    front, back, prepare = int8_block_parts(args[0], args[1:])
+                    parts = {"depthwise_ms": device_ms(front), "ln_mlp_ms": device_ms(back),
+                             "quant_pack_ms": device_ms(prepare)}
+                    extra = (f" = depthwise half {parts['depthwise_ms']:.4f} + ln_mlp_int8 "
+                             f"{parts['ln_mlp_ms']:.4f} + weights quantised and packed "
+                             f"{parts['quant_pack_ms']:.4f}")
+                host = time_ms(lambda: launch(*args))
                 bms, by = {"stem": lambda: stem_bound(shape, cout, torch.float32, dtype, peaks),
                            "downsample": lambda: downsample_bound(shape, cout, dtype, peaks),
                            "depthwise": lambda: depthwise_bound(shape, dtype, peaks),
                            "int8": lambda: int8_block_bound(shape, dtype, peaks)}[kind]()
                 lib = "" if library is None else f", library {library:.4f} ms"
+                chained = " (chained calls)" if kind == "int8" else ""
                 log(f"    {kind} {shape}" + (f"->{cout}" if cout else "") + f" {str(dtype)[6:]}: "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound {bms:.4f} ms ({by}){host}")
+                    f"kernel {ms:.4f} ms{extra}, plain {plain_ms:.4f} ms{chained}{lib}, bound {bms:.4f} "
+                    f"ms ({by}); device time per call; one checked call {host:.4f} ms with its host time")
                 if dtype != torch.bfloat16:
                     continue
                 for wshape, wcout, reps in work[kind]:
@@ -726,18 +766,23 @@ def timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts):
                         t["plain_ms"] += reps * plain_ms
                         t["bound_ms"] += reps * bms
                         t["by"].append(by)
+                        for key, value in parts.items():
+                            t[key] = t.get(key, 0.0) + reps * value
                         if library is not None:
                             t["library_ms"] = (t["library_ms"] or 0.0) + reps * library
     meta = {
         "int8": ("fused_convnext_block_int8", "mmgclip_tpu_torch/csrc/fused_block.cu",
                  "mmgclip_tpu/ops/fused_block.py:281", store_counts,
-                 "18 int8 blocks of one 2x2294x1914 feature-store bucket, bf16"),
+                 "18 int8 blocks of one 2x2294x1914 feature-store bucket, bf16; device time "
+                 "(the weights' quantise-and-pack in quant_pack_ms, inside ms); plain as chained "
+                 "calls"),
         "stem": ("fused_stem", "mmgclip_tpu_torch/csrc/fused_stem.cu",
                  "mmgclip_tpu/ops/fused_stem.py:99", store_counts,
-                 "the stem of one 2x2294x1914 feature-store bucket, fp32 input, bf16 weights"),
+                 "the stem of one 2x2294x1914 feature-store bucket, fp32 input, bf16 weights; "
+                 "device time"),
         "downsample": ("fused_ln_downsample", "mmgclip_tpu_torch/csrc/fused_downsample.cu",
                        "mmgclip_tpu/ops/fused_downsample.py:134", store_counts,
-                       "3 downsamples of one 2x2294x1914 feature-store bucket, bf16"),
+                       "3 downsamples of one 2x2294x1914 feature-store bucket, bf16; device time"),
         "depthwise": ("depthwise_conv7x7", "mmgclip_tpu_torch/csrc/depthwise_conv.cu",
                       "mmgclip_tpu/ops/depthwise_conv.py:46", dw_counts,
                       "18 depthwise convs of one 2x1024x832 bucket, bf16; device time"),
@@ -753,6 +798,7 @@ def timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "operations" if t["by"].count("operations") * 2 >= len(t["by"]) else "bytes",
             "library_ms": t["library_ms"], "work": what,
+            **{key: t[key] for key in ("depthwise_ms", "ln_mlp_ms", "quant_pack_ms") if key in t},
         })
     return entries
 

@@ -1,28 +1,33 @@
-"""Time the flash attention, depthwise and fp / bf16 block kernels of two
-checkouts on one card.
+"""Time the flash attention, depthwise, fp / bf16 block, int8 block and
+downsample kernels of two checkouts on one card.
 
     python3 kernel_ab.py --parent <directory holding the other checkout> [--out <json>]
 
-Builds ``mmgclip_tpu_torch/csrc/{flash_attention,depthwise_conv,fused_block}.cu``
-of the other checkout (unpacked with ``git archive``) with this tree's
-``nvcc`` flags and loads both trees' libraries through ctypes, each tree's
-entry points typed by that tree's own ``_SIGNATURES`` (read from its
-``ops/*.py`` source): ``mmg_fused_block`` gained a workspace pointer, so the
-block's call passes one only where the tree's signature has it.  Each case
-is the main path's work of a kernel, timed as device time per call of
-back-to-back calls (``chip_smoke.device_ms``) in the order parent, change,
-change, parent, on the same inputs and preallocated outputs:
+Builds ``mmgclip_tpu_torch/csrc/{flash_attention,depthwise_conv,fused_block,
+fused_downsample}.cu`` of the other checkout (unpacked with ``git archive``)
+with this tree's ``nvcc`` flags and loads both trees' libraries through
+ctypes, each tree's entry points typed by that tree's own ``_SIGNATURES``
+(read from its ``ops/*.py`` source): ``mmg_fused_block`` and
+``mmg_fused_block_int8`` gained a workspace pointer, so a block's call
+passes one only where the tree's signature has it.  Each case is the main
+path's work of a kernel, timed as device time per call of back-to-back
+calls (``chip_smoke.device_ms``) in the order parent, change, change,
+parent, on the same inputs and preallocated outputs:
 
 * flash: the serving path's prompt-bank batch (b=28, s=32 after the pad
   trim) and BERT-base at b=8 s=256 with phase 7's lengths, fp32 and bf16;
 * depthwise: the 18 convs of a 2 x 1024x832 bucket (depths 3/3/9/3), bf16
   and fp32, and the full-field stage-1 shape alone;
 * block: the 18 fp / bf16 blocks of the same bucket, bf16 and fp32, and the
-  full-field stage-1 shape alone.
+  full-field stage-1 shape alone;
+* int8: the 18 int8 blocks of a 2 x 2294x1914 feature-store bucket, bf16
+  and fp32, on weights quantised and packed once (both trees pack alike);
+* downsample: the three downsamples of the same bucket, bf16 and fp32.
 
 The two trees' outputs are held against each other with chip_smoke's
-tolerances.  One line per case is printed and all of them are written to
-``--out`` (default ``outputs/kernel_ab.json``).
+tolerances (the int8 blocks' own term x + mlp - x within ``INT8_REL_TOL``).
+One line per case is printed and all of them are written to ``--out``
+(default ``outputs/kernel_ab.json``).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ KERNELS = {  # source -> the ops module that registers its entry points
     "flash_attention.cu": "flash_attention",
     "depthwise_conv.cu": "depthwise_conv",
     "fused_block.cu": "fused_block",
+    "fused_downsample.cu": "fused_downsample",
 }
 EPS = 1e-6  # the block's LayerNorm epsilon (ops.fused_block.EPS)
 
@@ -152,6 +158,36 @@ def block_items(shapes_reps, dtype, rng, device):
     return items
 
 
+def int8_items(shapes_reps, dtype, rng, device):
+    """``block_items``'s inputs with the weights quantised and packed
+    (``ops.fused_block.int8_weights``) in the entry point's order."""
+    from mmgclip_tpu_torch.ops.fused_block import int8_weights
+
+    items = []
+    for (x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, ws), out, reps in block_items(shapes_reps, dtype, rng,
+                                                                              device):
+        w1p, ws1, w2p, ws2 = int8_weights(w1, w2)
+        items.append(((x, dwk, dwb, ns, nb, w1p, ws1, b1, w2p, ws2, b2, g, ws), out, reps))
+    return items
+
+
+def downsample_items(pairs, dtype, rng, device):
+    """chip_smoke.glue_inputs's scales for [n, H, W, Cin] -> Cout, from numpy."""
+    items = []
+    for shape, cout in pairs:
+        cin = shape[-1]
+
+        def r(*s, scale=1.0, offset=0.0, dt=dtype):
+            return torch.from_numpy((offset + rng.standard_normal(s) * scale).astype(np.float32)).to(device, dt)
+
+        x = r(*shape)
+        args = (x, r(cin, scale=0.1, offset=1.0, dt=torch.float32), r(cin, scale=0.1, dt=torch.float32),
+                r(2, 2, cin, cout, scale=(4 * cin) ** -0.5), r(cout, scale=0.1))
+        n, h, w, _ = shape
+        items.append((args, torch.empty(n, -(-h // 2), -(-w // 2), cout, dtype=dtype, device=device), 1))
+    return items
+
+
 def launcher(kind, lib):
     stream = torch.cuda.current_stream().cuda_stream
     if kind == "flash":
@@ -167,14 +203,23 @@ def launcher(kind, lib):
             n, h, wd, c = x.shape
             return lib.mmg_depthwise_conv7x7(DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
                                              b.data_ptr(), out.data_ptr(), n, h, wd, c, stream)
+    elif kind == "downsample":
+        def call(args, out):
+            x, ns, nb, k, b = args
+            n, h, wd, cin = x.shape
+            return lib.mmg_fused_downsample(DTYPE_CODES[x.dtype], x.data_ptr(), ns.data_ptr(),
+                                            nb.data_ptr(), k.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                            n, h, wd, cin, k.shape[-1], EPS, stream)
     else:
-        with_ws = len(lib.mmg_fused_block.argtypes) == 20  # the parent's has no workspace
+        # the parents' entry points have no workspace
+        entry = lib.mmg_fused_block_int8 if kind == "int8" else lib.mmg_fused_block
+        with_ws = len(entry.argtypes) == (22 if kind == "int8" else 20)
 
         def call(args, out):
             *tensors, ws = args
             n, h, wd, c = tensors[0].shape
             ptrs = [t.data_ptr() for t in tensors] + [out.data_ptr()] + ([ws.data_ptr()] if with_ws else [])
-            return lib.mmg_fused_block(DTYPE_CODES[tensors[0].dtype], *ptrs, n, h, wd, c, EPS, 0, stream)
+            return entry(DTYPE_CODES[tensors[0].dtype], *ptrs, n, h, wd, c, EPS, 0, stream)
 
     def work(items):
         for args, out, reps in items:
@@ -185,12 +230,17 @@ def launcher(kind, lib):
     return work
 
 
-def agree(kind, dtype, a, b):
-    """The two trees' outputs within chip_smoke's kernel-vs-plain tolerance."""
-    from chip_smoke import BF16_REL_TOL, FLASH_FP32_ABS_TOL, FP32_REL_TOL
+def agree(kind, dtype, a, b, x):
+    """The two trees' outputs within chip_smoke's kernel-vs-plain tolerance
+    (the int8 block's own term: x dominates x + mlp)."""
+    from chip_smoke import BF16_REL_TOL, FLASH_FP32_ABS_TOL, FP32_REL_TOL, INT8_REL_TOL
 
+    if kind == "int8":
+        a, b = a.float() - x.float(), b.float() - x.float()
     err = (a.float() - b.float()).abs().max().item()
     scale = b.float().abs().max().item()
+    if kind == "int8":
+        return err, err <= INT8_REL_TOL * scale
     if dtype == torch.bfloat16:
         return err, err <= BF16_REL_TOL * scale
     if kind == "flash":
@@ -235,18 +285,26 @@ def main(argv=None) -> int:
                           block_items(list(zip(bucket, DEPTHS)), dtype, rng, device)))
         cases.append((f"block stage 1 {ffdm}", "block", torch.bfloat16,
                       block_items([(ffdm, 1)], torch.bfloat16, rng, device)))
+        store = stage_shapes_of(2, *FFDM_SHAPES[0])
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"int8 18 blocks of 2x{FFDM_SHAPES[0][0]}x{FFDM_SHAPES[0][1]}", "int8", dtype,
+                          int8_items(list(zip(store, DEPTHS)), dtype, rng, device)))
+            cases.append((f"downsample 3 of 2x{FFDM_SHAPES[0][0]}x{FFDM_SHAPES[0][1]}", "downsample",
+                          dtype, downsample_items([(s, d[-1]) for s, d in zip(store, store[1:])], dtype,
+                                                  rng, device)))
 
         rows = []
         for label, kind, dtype, items in cases:
             source = {"flash": "flash_attention.cu", "depthwise": "depthwise_conv.cu",
-                      "block": "fused_block.cu"}[kind]
+                      "block": "fused_block.cu", "int8": "fused_block.cu",
+                      "downsample": "fused_downsample.cu"}[kind]
             runs = {"parent": launcher(kind, parent[source]), "change": launcher(kind, change[source])}
             outs = {}
             for tree, run in runs.items():  # one checked call each: the outputs to compare
                 run(items)
                 outs[tree] = items[-1][1].clone()
             torch.cuda.synchronize()
-            err, ok = agree(kind, dtype, outs["change"], outs["parent"])
+            err, ok = agree(kind, dtype, outs["change"], outs["parent"], items[-1][0][0])
             if not ok:
                 raise AssertionError(f"{label} {dtype}: the two trees differ by {err}")
             times = {tree: device_ms(lambda: runs[tree](items), calls=10)

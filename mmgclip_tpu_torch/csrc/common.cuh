@@ -1,8 +1,8 @@
 // Helpers shared by the kernels (fused_block.cu, fused_stem.cu,
 // fused_downsample.cu, depthwise_conv.cu / depthwise_tile.cuh,
 // flash_attention.cu; ring_all_gather.cu takes only the error-string
-// export), among them the tensor-core fragments of flash_attention.cu and
-// fused_block.cu's ln_mlp kernel.  Each source still builds into its own
+// export), among them the tensor-core fragments of flash_attention.cu,
+// fused_block.cu's ln_mlp and ln_mlp_int8 and fused_downsample.cu.  Each source still builds into its own
 // shared library; ops/_build.py hashes every csrc/*.cuh into every
 // library's key, so a change here rebuilds them all.
 #pragma once
@@ -28,6 +28,43 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // round an fp32 value to T's precision (a no-op for float)
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f<T>(from_f<T>(v));
+}
+
+// two consecutive values of T (4- or 8-byte aligned) as a float2
+template <typename T> __device__ __forceinline__ float2 load_pair(const T* p);
+template <> __device__ __forceinline__ float2 load_pair<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <> __device__ __forceinline__ float2 load_pair<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// four consecutive values of T (8- or 16-byte aligned) as / from a float4
+template <typename T> __device__ __forceinline__ float4 load4(const T* p);
+template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+// two floats -> bf16x2 (round to nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <typename T> __device__ __forceinline__ void store4(T* p, float4 v);
+template <> __device__ __forceinline__ void store4<float>(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+template <> __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, float4 v) {
+  uint2 raw;
+  raw.x = pack_bf16(v.x, v.y);
+  raw.y = pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -131,6 +168,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// m16n8k32 in int8 with exact int32 sums.  Fragments by 32-bit words of four
+// int8 (the lowest byte first): A a0..a3 = (row g, k 4t..4t+3), (row g + 8,
+// the same k), (row g, k 16 + 4t..), (row g + 8, k 16 + 4t..), which is the
+// bf16 A layout read as bytes (ldmatrix serves it); B b0 = (k 4t..4t+3,
+// column g), b1 = (k 16 + 4t.., column g); C as above, in int32.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -141,12 +192,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-// two floats -> bf16x2 (round to nearest even), lo in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
 }
 
 // Raise a kernel's dynamic shared memory limit on the current device to the

@@ -65,14 +65,6 @@ template <typename T> __host__ __device__ constexpr int buffer_elems() {
 }
 template <typename T> constexpr size_t smem_bytes() { return 2 * buffer_elems<T>() * sizeof(T); }
 
-template <typename T> __device__ __forceinline__ float2 load_pair(const T* p);
-template <> __device__ __forceinline__ float2 load_pair<float>(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-template <> __device__ __forceinline__ float2 load_pair<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
 struct Tile {
   int img, y0, x0, c0;
 };

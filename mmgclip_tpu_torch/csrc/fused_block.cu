@@ -70,51 +70,22 @@
 // a CTA meeting at each weight tile's barrier.  TMA bulk copies of the
 // weight rows (an mbarrier a stage) measured slower than cp.async, and
 // smaller tiles in more stages too.
-
-// The int8 block (mmg_fused_block_int8, below) keeps its own one-kernel
-// design with __dp4a products.
+//
+// The int8 block (mmg_fused_block_int8) is the same two launches with
+// ln_mlp_int8 as the back half: the pointwise products on the int8 tensor
+// cores (see its notes below).
 
 #include "common.cuh"
 #include "depthwise_tile.cuh"
 
 #include <algorithm>
+#include <type_traits>
 
 #include <cooperative_groups.h>
 
 namespace {
 
 using namespace mmg;
-
-constexpr int KS = 7;
-constexpr int HALO = 3;
-constexpr int THREADS = 256;  // the int8 kernel's
-
-// (a) of the int8 kernel: the 49 depthwise taps of pixel `pix`, channel `ch`,
-// accumulated in fp32 (out-of-image taps skipped: SAME zero padding), plus
-// the bias
-template <typename T>
-__device__ __forceinline__ float dwconv_at(const T* __restrict__ x, const T* __restrict__ dwk,
-                                           const T* __restrict__ dwb, long long pix, int ch,
-                                           int h, int w, int c) {
-  const long long hw = (long long)h * w;
-  const long long img = pix / hw;
-  const long long rem = pix - img * hw;
-  const int py = (int)(rem / w);
-  const int px = (int)(rem - (long long)py * w);
-  const T* xb = x + img * hw * c + ch;
-  float s = 0.0f;
-  for (int ky = 0; ky < KS; ++ky) {
-    const int yy = py + ky - HALO;
-    if (yy < 0 || yy >= h) continue;
-#pragma unroll
-    for (int kx = 0; kx < KS; ++kx) {
-      const int xx = px + kx - HALO;
-      if (xx < 0 || xx >= w) continue;
-      s += to_f<T>(xb[((long long)yy * w + xx) * c]) * to_f<T>(dwk[(ky * KS + kx) * c + ch]);
-    }
-  }
-  return s + to_f<T>(dwb[ch]);
-}
 
 // ---------------------------------------------------------------------------
 // ln_mlp: the back half of the fp / bf16 block on the tensor cores.
@@ -189,15 +160,26 @@ MlpPlan plan_mlp(int c, int max_smem) {
   return p;
 }
 
+// int8 of v at scale s, the plain version's formula: clip(rint(v / s), +-127)
+__device__ __forceinline__ int quant8(float v, float s) {
+  return (int)fminf(fmaxf(rintf(v / s), -127.0f), 127.0f);
+}
+__device__ __forceinline__ unsigned short pack_s8(int lo, int hi) {
+  return (unsigned short)((lo & 0xff) | ((hi & 0xff) << 8));
+}
+
 // LN of ROWS rows of y at once (rows r, r + step, ...), a lane holding the
 // channel pairs 2 lane + 64 i, i < PAIRS, of each (C <= 64 * PAIRS): one
 // round trip to device memory for all of them, 8-byte loads, and the LN
 // affine read once.  Rows past bm are skipped, rows past n*H*W are zeros.
+// With T = int8_t (the int8 block) each row is quantised with one scale,
+// max(amax over C, 1e-8) * float(1/127), stored in ``scales[row]``.
 template <typename T, int ROWS, int PAIRS>
 __device__ __forceinline__ void ln_rows(T* As, int a_stride, int cp, int r, int step, int bm,
                                         long long pix0, long long total, const float* __restrict__ y,
                                         const float* __restrict__ ns, const float* __restrict__ nb,
-                                        int c, float eps) {
+                                        int c, float eps, float* scales = nullptr) {
+  constexpr bool INT8 = std::is_same<T, int8_t>::value;
   const int lane = threadIdx.x & 31;
   float2 v[ROWS][PAIRS], scale[PAIRS], shift[PAIRS];
 #pragma unroll
@@ -234,65 +216,66 @@ __device__ __forceinline__ void ln_rows(T* As, int a_stride, int cp, int r, int 
     }
     const float rstd = 1.0f / sqrtf(warp_sum(sq) / (float)c + eps);
     const bool live = pix0 + rr < total;
+    auto norm = [&](int i) {  // the LN output of pair i (the same bits every time)
+      return live && 2 * lane + 64 * i < c
+                 ? make_float2((v[q][i].x - mean) * rstd * scale[i].x + shift[i].x,
+                               (v[q][i].y - mean) * rstd * scale[i].y + shift[i].y)
+                 : make_float2(0.0f, 0.0f);
+    };
+    float s = 1.0f;
+    if constexpr (INT8) {
+      float amax = 0.0f;
+#pragma unroll
+      for (int i = 0; i < PAIRS; ++i) {
+        const float2 o = norm(i);
+        amax = fmaxf(amax, fmaxf(fabsf(o.x), fabsf(o.y)));
+      }
+      s = fmaxf(warp_max(amax), 1e-8f) * (1.0f / 127.0f);
+      if (lane == 0) scales[rr] = s;
+    }
 #pragma unroll
     for (int i = 0; i < PAIRS; ++i) {
       const int ch = 2 * lane + 64 * i;
       if (ch < cp) {
-        const bool ok = live && ch < c;
-        const float a = ok ? (v[q][i].x - mean) * rstd * scale[i].x + shift[i].x : 0.0f;
-        const float b = ok ? (v[q][i].y - mean) * rstd * scale[i].y + shift[i].y : 0.0f;
-        if constexpr (sizeof(T) == 2) {
-          *reinterpret_cast<unsigned*>(arow + ch) = pack_bf16(a, b);
+        const float2 o = norm(i);
+        if constexpr (INT8) {
+          *reinterpret_cast<unsigned short*>(arow + ch) = pack_s8(quant8(o.x, s), quant8(o.y, s));
+        } else if constexpr (sizeof(T) == 2) {
+          *reinterpret_cast<unsigned*>(arow + ch) = pack_bf16(o.x, o.y);
         } else {
-          *reinterpret_cast<float2*>(arow + ch) = make_float2(a, b);
+          *reinterpret_cast<float2*>(arow + ch) = o;
         }
       }
     }
     for (int ch = 2 * lane + 64 * PAIRS; ch < cp; ch += 64) {
-      arow[ch] = from_f<T>(0.0f);
-      arow[ch + 1] = from_f<T>(0.0f);
+      if constexpr (INT8) {
+        *reinterpret_cast<unsigned short*>(arow + ch) = 0;
+      } else {
+        arow[ch] = from_f<T>(0.0f);
+        arow[ch + 1] = from_f<T>(0.0f);
+      }
     }
   }
 }
 
-// four consecutive values of T (8- or 16-byte aligned) as / from a float4
-template <typename T> __device__ __forceinline__ float4 load4(const T* p);
-template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-template <typename T> __device__ __forceinline__ void store4(T* p, float4 v);
-template <> __device__ __forceinline__ void store4<float>(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-template <> __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, float4 v) {
-  uint2 raw;
-  raw.x = pack_bf16(v.x, v.y);
-  raw.y = pack_bf16(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// (iii) the epilogue: each warp writes its O fragments (fp32) into the O
-// tile [bm, C] (rows padded by 4) in shared memory, over the spent weight stages, A and H
-// tiles; then the CTA reads the tile back by float4 groups, with x, b2 and
-// gamma as 4-vectors, and stores x + gamma * (O + b2) in T (coalesced).  In
-// a split row tile, each CTA of the cluster holds its partial O, and CTA
-// `rank` sums every CTA's partial for its share of the groups through
-// distributed shared memory, in the fixed order 0, 1, ..., parts - 1 (the
-// same bits on every launch).
-template <typename T>
-__device__ __forceinline__ void store_tile(unsigned char* smem_raw, const float (&acc)[OUT_BLOCKS][4],
-                                           int bm, int r0, int ocol0, int oblocks, int rank,
-                                           int parts, long long pix0, long long total, int c,
-                                           const T* __restrict__ x, const T* __restrict__ b2,
-                                           const T* __restrict__ gamma, T* __restrict__ out) {
+// (iii) the epilogue: each warp writes its O fragments (A: fp32, or int32
+// for the int8 block) into the O tile [bm, C] (rows padded by 4) in shared
+// memory at ``tile``, over the spent weight stages, A and H tiles; then the
+// CTA reads the tile back by 4-vectors and hands each to ``finish(pix, row,
+// col, o)``, which stores output row ``pix``'s columns col..col + 3
+// (coalesced).  In a split row tile, each CTA of the cluster holds its
+// partial O, and CTA `rank` sums every CTA's partial for its share of the
+// groups through distributed shared memory, in the fixed order 0, 1, ...,
+// parts - 1 (the same bits on every launch; int32 sums are exact in any
+// order).
+template <typename A, typename Finish>
+__device__ __forceinline__ void store_tile(unsigned char* tile, const A (&acc)[OUT_BLOCKS][4], int bm,
+                                           int r0, int ocol0, int oblocks, int rank, int parts,
+                                           long long pix0, long long total, int c, Finish finish) {
   namespace cg = cooperative_groups;
-  float* part = reinterpret_cast<float*>(smem_raw);  // [bm][C + 4]: the fragment rows 4 banks apart
+  using V = typename std::conditional<std::is_same<A, float>::value, float4, int4>::type;
+  using V2 = typename std::conditional<std::is_same<A, float>::value, float2, int2>::type;
+  A* part = reinterpret_cast<A*>(tile);  // [bm][C + 4]: the fragment rows 4 banks apart
   const int ostride = c + 4;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   __syncthreads();  // every warp is done with the stages, the A and the H tile
@@ -302,8 +285,8 @@ __device__ __forceinline__ void store_tile(unsigned char* smem_raw, const float 
     if (blk < oblocks && n < c) {
 #pragma unroll
       for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<float2*>(part + (size_t)(r0 + g + 8 * half) * ostride + n) =
-            make_float2(acc[blk][2 * half], acc[blk][2 * half + 1]);
+        *reinterpret_cast<V2*>(part + (size_t)(r0 + g + 8 * half) * ostride + n) =
+            V2{acc[blk][2 * half], acc[blk][2 * half + 1]};
     }
   }
   if (parts > 1) {
@@ -317,21 +300,18 @@ __device__ __forceinline__ void store_tile(unsigned char* smem_raw, const float 
     const long long pix = pix0 + row;
     if (pix >= total) continue;
     const size_t at_tile = (size_t)row * ostride + col;
-    float4 o;
+    V o;
     if (parts == 1) {
-      o = *reinterpret_cast<const float4*>(part + at_tile);
+      o = *reinterpret_cast<const V*>(part + at_tile);
     } else {
       cg::cluster_group cluster = cg::this_cluster();
-      o = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, 0) + at_tile);
+      o = *reinterpret_cast<const V*>(cluster.map_shared_rank(part, 0) + at_tile);
       for (int q = 1; q < parts; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, q) + at_tile);
+        const V v = *reinterpret_cast<const V*>(cluster.map_shared_rank(part, q) + at_tile);
         o.x += v.x; o.y += v.y; o.z += v.z; o.w += v.w;
       }
     }
-    const long long at = pix * c + col;
-    const float4 xv = load4(x + at), bv = load4(b2 + col), gv = load4(gamma + col);
-    store4(out + at, make_float4(xv.x + (o.x + bv.x) * gv.x, xv.y + (o.y + bv.y) * gv.y,
-                                 xv.z + (o.z + bv.z) * gv.z, xv.w + (o.w + bv.w) * gv.w));
+    finish(pix, row, col, o);
   }
   if (parts > 1) cg::this_cluster().sync();  // no CTA leaves while another still reads its partial
 }
@@ -560,8 +540,13 @@ ln_mlp_kernel(const float* __restrict__ y, const T* __restrict__ x, const float*
     }
   }
   cp_async_wait<0>();
-  store_tile<T>(smem_raw, acc, bm, r0, ocol0, oblocks, rank, p.split, pix0, total, c, x, b2, gamma,
-                out);
+  store_tile(smem_raw, acc, bm, r0, ocol0, oblocks, rank, p.split, pix0, total, c,
+             [&](long long pix, int, int col, float4 o) {
+               const long long at = pix * c + col;
+               const float4 xv = load4(x + at), bv = load4(b2 + col), gv = load4(gamma + col);
+               store4(out + at, make_float4(xv.x + (o.x + bv.x) * gv.x, xv.y + (o.y + bv.y) * gv.y,
+                                            xv.z + (o.z + bv.z) * gv.z, xv.w + (o.w + bv.w) * gv.w));
+             });
 }
 
 // CTAs per row tile: the split (1..8) with the least modelled time, counted
@@ -584,17 +569,9 @@ inline int pick_split(long long row_tiles, int chunks, int sms) {
   return best;
 }
 
-template <typename T>
-cudaError_t launch_ln_mlp(const float* y, const void* x, const float* ns, const float* nb,
-                          const void* w1, const void* b1, const void* w2, const void* b2,
-                          const void* gamma, void* out, long long total, int c, float eps,
-                          int gelu_tanh, cudaStream_t stream) {
-  auto kernel = ln_mlp_kernel<T>;
-  int max_smem = 0;
-  const cudaError_t err = allow_max_smem(kernel, &max_smem);
-  if (err != cudaSuccess) return err;
-  MlpPlan p = plan_mlp<T>(c, max_smem);
-  if (p.wm == 0) return cudaErrorInvalidValue;
+// The grid of a plan over ``total`` rows: the row tiles times the CTAs that
+// share each (pick_split), which it sets in the plan.
+inline cudaError_t plan_grid(MlpPlan& p, long long total, long long* blocks) {
   const long long bm = 16LL * p.wm;
   const long long row_tiles = (total + bm - 1) / bm;
   int dev = 0, sms = 0;
@@ -602,10 +579,14 @@ cudaError_t launch_ln_mlp(const float* y, const void* x, const float* ns, const 
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   p.split = pick_split(row_tiles, p.chunks, sms);
-  const long long blocks = row_tiles * p.split;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const bool vec1 = reinterpret_cast<uintptr_t>(w1) % 16 == 0;  // rows of 4C elements: 16-byte multiples
-  const bool vec2 = reinterpret_cast<uintptr_t>(w2) % 16 == 0 && (c * sizeof(T)) % 16 == 0;
+  *blocks = row_tiles * p.split;
+  return *blocks > 0x7fffffffLL ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// Launch a plan's kernel on ``blocks`` CTAs in clusters of p.split.
+template <typename... Params, typename... Args>
+cudaError_t launch_plan(void (*kernel)(Params...), const MlpPlan& p, long long blocks,
+                        cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3(32 * p.wm * p.wn);
@@ -618,11 +599,30 @@ cudaError_t launch_ln_mlp(const float* y, const void* x, const float* ns, const 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, y, static_cast<const T*>(x), ns, nb,
-                            static_cast<const T*>(w1), static_cast<const T*>(b1),
-                            static_cast<const T*>(w2), static_cast<const T*>(b2),
-                            static_cast<const T*>(gamma), static_cast<T*>(out), total, c, eps,
-                            gelu_tanh, p, vec1 ? 1 : 0, vec2 ? 1 : 0);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename T>
+cudaError_t launch_ln_mlp(const float* y, const void* x, const float* ns, const float* nb,
+                          const void* w1, const void* b1, const void* w2, const void* b2,
+                          const void* gamma, void* out, long long total, int c, float eps,
+                          int gelu_tanh, cudaStream_t stream) {
+  auto kernel = ln_mlp_kernel<T>;
+  int max_smem = 0;
+  cudaError_t err = allow_max_smem(kernel, &max_smem);
+  if (err != cudaSuccess) return err;
+  MlpPlan p = plan_mlp<T>(c, max_smem);
+  if (p.wm == 0) return cudaErrorInvalidValue;
+  long long blocks = 0;
+  err = plan_grid(p, total, &blocks);
+  if (err != cudaSuccess) return err;
+  const bool vec1 = reinterpret_cast<uintptr_t>(w1) % 16 == 0;  // rows of 4C elements: 16-byte multiples
+  const bool vec2 = reinterpret_cast<uintptr_t>(w2) % 16 == 0 && (c * sizeof(T)) % 16 == 0;
+  return launch_plan(kernel, p, blocks, stream, y, static_cast<const T*>(x), ns, nb,
+                     static_cast<const T*>(w1), static_cast<const T*>(b1),
+                     static_cast<const T*>(w2), static_cast<const T*>(b2),
+                     static_cast<const T*>(gamma), static_cast<T*>(out), total, c, eps,
+                     gelu_tanh, p, vec1 ? 1 : 0, vec2 ? 1 : 0);
 }
 
 // C's largest value: WN = ceil(Cp / 96) warps across must fit in one CTA
@@ -633,177 +633,338 @@ bool block_args_ok(int n, int h, int w, int c) {
 }
 
 // ---------------------------------------------------------------------------
-// The int8 block (replaces `_fused_call_int8` of mmgclip_tpu/ops/fused_block.py
-// and the `quant=True` route of `_fused_call_banded`).
+// ln_mlp_int8: the back half of the int8 block (replaces `_fused_call_int8`
+// of mmgclip_tpu/ops/fused_block.py and the `quant=True` route of
+// `_fused_call_banded`) on the int8 tensor cores, mma.sync m16n8k32 s8 with
+// exact int32 sums.
 //
-// Same block, with both pointwise products in int8 and exact int32 sums:
-//   * weights are quantised by the wrapper, per output channel
-//     (`int8_quantize(w, axis=0)`: scale max(amax, 1e-8) / 127, round half to
-//     even, clip to +-127) and packed four input rows to an int32 word:
-//     w1p [C/4][4C], w2p [C][C] (word (q, j) holds rows 4q..4q+3 of column j);
-//   * activations are quantised here with ONE SCALE PER PIXEL: the LN output
-//     over its C channels before pw1, the GELU output over its 4C hidden
-//     units before pw2.  Scale = max(amax, 1e-8) * float(1/127) (the JAX
-//     kernel's formula), q = clip(rint(v / scale), -127, 127).  The partition
-//     depends on the tensor's shape alone, never on the launch, so the plain
-//     version (ops/fused_block.py::plain_convnext_block_int8) computes the same
-//     one; it also keeps masked (bucketed) encodes equal to exact-shape ones,
-//     since pad pixels never share a scale with real ones.  (The JAX kernel's
-//     scale is per row chunk, which follows its VMEM tiling.)
-//   * products run as __dp4a (four int8 products into int32), dequantised by
-//     the product of the two scales; no rounding to T inside the block (the
-//     JAX int8 kernel keeps the LN and GELU outputs in fp32).
-// A CTA owns P pixels; the GELU output of its P pixels is held whole in
-// shared memory ([P][4C] fp32, 12 KB per pixel at C = 768) because its scale
-// needs the whole row, so P shrinks with C.  What bounds it: 16*C^2 int8
-// operations per pixel (dp4a, not the tensor cores) against 2*C*sizeof(T)
-// bytes, so operations.
+// What it computes (plain_convnext_block_int8 in ops/fused_block.py):
+//   * weights quantised by the wrapper per output channel (scale
+//     max(amax, 1e-8) / 127, round half to even, clip to +-127) and packed
+//     four K rows to an int32 word: w1p [C/4][4C], w2p [C][C] (word (q, j)
+//     holds rows 4q..4q+3 of column j, the lowest byte first), which is the
+//     mma's B fragment: b0 = word (k0/4 + t, n0 + g), b1 four words further;
+//   * ONE ACTIVATION SCALE PER PIXEL: the LN output over its C channels
+//     before pw1, the GELU output over its 4C hidden units before pw2;
+//     scale = max(amax, 1e-8) * float(1/127), q = clip(rint(v / scale),
+//     +-127).  The partition depends on the tensor's shape alone, never on
+//     the launch, so masked (bucketed) encodes equal exact-shape ones (pad
+//     pixels never share a scale with real ones).  (The JAX kernel's scale
+//     is per row chunk, which follows its VMEM tiling.)
+//   * fp32 for the depthwise, LN, GELU and the dequantised sums, which
+//     follow the plain version's roundings ((float)acc * (s * ws) + b, then
+//     the layer scale and the residual); nothing is rounded to T inside.
+//
+// Design: ln_mlp's tile plan with int8 tiles.  A CTA owns BM rows and all C
+// channels, WM x WN warps; the LN prologue quantises each row into the int8
+// A tile [BM, Cp] (Cp = C rounded up to 32, the mma's K, zero-filled) and
+// keeps its scale s1.  pw2's scale needs the whole 4C GELU row before any
+// pw2 product, and the row does not fit on chip at C = 768, so the hidden
+// chunks are walked twice:
+//   pass 1: pw1, dequantise, b1, GELU, and only a running max |GELU| per
+//           row; reduced over the warps (atomicMax on the float bits: exact
+//           in any order) and over the CTAs of a cluster (distributed shared
+//           memory) into s2;
+//   pass 2: the same pw1 and GELU (the same code, so the same bits),
+//           quantised with the row's s2 into the int8 H tile [BM, HN], then
+//           pw2 into int32 O fragments.  s2 is constant along the row, so
+//           the chunks' int32 partial sums (|sum| <= 4C * 127^2 < 2^31) add
+//           exactly, also across a cluster; the epilogue dequantises once.
+// The weight tiles (W1 [KS1 / 4 word rows, HN], W2 [KS2 / 4, Cp], words)
+// stream through shared memory by 16-byte cp.async in stages, one barrier a
+// tile: pass 1's W1 tiles, then each chunk's W1 and W2 tiles.  Fragments:
+// ldmatrix for A and H (16-byte rows are 8 x 8 b16 matrices), 32-bit loads
+// of the packed words for B, rows padded against bank conflicts.  The
+// recompute costs one more pw1 and GELU a pixel: 1.5x the function's
+// products at twice the bf16 rate.  What bounds it: 16*C^2 int8 operations
+// per pixel against 2*C*sizeof(T) bytes, so operations at every stage.
 
-constexpr int PT8 = 8;  // pixels per thread item in the int8 products
+constexpr int MAX_C_INT8 = 768;        // the LN prologue holds a row in registers
+constexpr int I8_HIDDEN = 64;          // hidden units of a chunk a warp computes (8 blocks)
+constexpr int I8_STAGE_WORDS = 16384;  // a weight stage holds at most 64 KB
 
-size_t smem_bytes_int8(int p, int c) {
-  // hid [P][4C] fp32 (also the LN rows [P][C] before pw1), yq [P][C] and
-  // hq [P][4C] int8, one scale per pixel for each product
-  return (size_t)p * 16 * c + (size_t)p * c + (size_t)p * 4 * c + 2 * (size_t)p * sizeof(float);
-}
+// The int8 plan: a_stride and h_stride in bytes; w1_stride, w2_stride and
+// stage_elems in 32-bit words; ks1 and ks2 in K rows (multiples of 32).
+// Shared memory: s1, s2 and the row maxima [BM] each, then the stages, the
+// A and the H tile; the int32 O tile [BM, C] of the epilogue reuses all but
+// the scales.
+__host__ __device__ inline size_t int8_head_bytes(int bm) { return (size_t)(3 * bm * 4 + 15) / 16 * 16; }
 
-// quantise one row of n values (a whole warp): -> scale, q[] in int8
-__device__ __forceinline__ float warp_quantize_row(const float* row, int8_t* q, int n) {
-  const int lane = threadIdx.x & 31;
-  float amax = 0.0f;
-  for (int i = lane; i < n; i += 32) amax = fmaxf(amax, fabsf(row[i]));
-  const float scale = fmaxf(warp_max(amax), 1e-8f) * (1.0f / 127.0f);
-  for (int i = lane; i < n; i += 32)
-    q[i] = (int8_t)fminf(fmaxf(rintf(row[i] / scale), -127.0f), 127.0f);
-  return scale;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-fused_block_int8_kernel(const T* __restrict__ x, const T* __restrict__ dwk,
-                        const T* __restrict__ dwb, const float* __restrict__ ns,
-                        const float* __restrict__ nb, const int* __restrict__ w1p,
-                        const float* __restrict__ ws1, const T* __restrict__ b1,
-                        const int* __restrict__ w2p, const float* __restrict__ ws2,
-                        const T* __restrict__ b2, const T* __restrict__ gamma,
-                        T* __restrict__ out, int n, int h, int w, int c, int p_tile, float eps,
-                        int gelu_tanh) {
-  extern __shared__ __align__(16) float smem[];
-  const int c4 = 4 * c;
-  float* hid = smem;                                       // [P][4C]; [P][C] LN rows first
-  int8_t* yq = reinterpret_cast<int8_t*>(hid + p_tile * c4);  // [P][C]
-  int8_t* hq = yq + p_tile * c;                             // [P][4C]
-  float* s1 = reinterpret_cast<float*>(hq + p_tile * c4);   // [P]
-  float* s2 = s1 + p_tile;                                  // [P]
-
-  const long long total = (long long)n * h * w;
-  const long long pix0 = (long long)blockIdx.x * p_tile;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int groups = p_tile / PT8;
-
-  // (a) depthwise 7x7 + bias into the LN rows
-  for (int idx = tid; idx < p_tile * c; idx += THREADS) {
-    const int p = idx / c;
-    const int ch = idx - p * c;
-    const long long pix = pix0 + p;
-    hid[idx] = pix < total ? dwconv_at<T>(x, dwk, dwb, pix, ch, h, w, c) : 0.0f;
-  }
-  __syncthreads();
-
-  // (b) LN over C in fp32, then the per-pixel int8 quantisation of pw1's input
-  for (int p = warp; p < p_tile; p += THREADS / 32) {
-    float* row = hid + p * c;
-    const float2 st = warp_row_stats(row, c, eps);
-    for (int ch = lane; ch < c; ch += 32) row[ch] = (row[ch] - st.x) * st.y * ns[ch] + nb[ch];
-    __syncwarp();
-    const float scale = warp_quantize_row(row, yq + p * c, c);
-    if (lane == 0) s1[p] = scale;
-  }
-  __syncthreads();
-
-  // (c) pw1 in int8 + dequantise + b1 + GELU, whole [P][4C] rows in fp32
-  const int cq = c / 4;
-  const int* yw = reinterpret_cast<const int*>(yq);
-  for (int item = tid; item < groups * c4; item += THREADS) {
-    const int g = item / c4;
-    const int j = item - g * c4;
-    int a[PT8];
-#pragma unroll
-    for (int i = 0; i < PT8; ++i) a[i] = 0;
-    for (int q = 0; q < cq; ++q) {
-      const int wv = w1p[(long long)q * c4 + j];
-#pragma unroll
-      for (int i = 0; i < PT8; ++i) a[i] = __dp4a(yw[(g * PT8 + i) * cq + q], wv, a[i]);
-    }
-    const float bj = to_f<T>(b1[j]);
-    const float wsj = ws1[j];
-#pragma unroll
-    for (int i = 0; i < PT8; ++i) {
-      const int p = g * PT8 + i;
-      const float v = (float)a[i] * (s1[p] * wsj) + bj;
-      hid[p * c4 + j] = gelu(v, gelu_tanh);
-    }
-  }
-  __syncthreads();
-
-  // (d) per-pixel int8 quantisation of pw2's input
-  for (int p = warp; p < p_tile; p += THREADS / 32) {
-    const float scale = warp_quantize_row(hid + p * c4, hq + p * c4, c4);
-    if (lane == 0) s2[p] = scale;
-  }
-  __syncthreads();
-
-  // (e) pw2 in int8 + dequantise + b2, layer scale, residual, one store in T
-  const int* hw4 = reinterpret_cast<const int*>(hq);
-  for (int item = tid; item < groups * c; item += THREADS) {
-    const int g = item / c;
-    const int ch = item - g * c;
-    int a[PT8];
-#pragma unroll
-    for (int i = 0; i < PT8; ++i) a[i] = 0;
-    for (int q = 0; q < c; ++q) {
-      const int wv = w2p[(long long)q * c + ch];
-#pragma unroll
-      for (int i = 0; i < PT8; ++i) a[i] = __dp4a(hw4[(g * PT8 + i) * c + q], wv, a[i]);
-    }
-    const float bc = to_f<T>(b2[ch]);
-    const float wsc = ws2[ch];
-    const float gc = to_f<T>(gamma[ch]);
-#pragma unroll
-    for (int i = 0; i < PT8; ++i) {
-      const int p = g * PT8 + i;
-      const long long pix = pix0 + p;
-      if (pix < total) {
-        const long long at = pix * c + ch;
-        const float o = ((float)a[i] * (s2[p] * wsc) + bc) * gc;
-        out[at] = from_f<T>(to_f<T>(x[at]) + o);
+MlpPlan plan_mlp_int8(int c, int max_smem) {
+  MlpPlan p{};
+  p.split = 1;
+  p.cp = (c + 31) / 32 * 32;
+  p.wn = (p.cp + 95) / 96;
+  p.nw = ((p.cp + p.wn - 1) / p.wn + 7) / 8 * 8;
+  p.hw = I8_HIDDEN;
+  p.hn = p.hw * p.wn;
+  p.a_stride = p.cp + 16;  // 16-byte rows an odd count apart: ldmatrix free of conflicts
+  p.h_stride = p.hn + 16;
+  p.w1_stride = p.hn + 8;  // = 8 mod 32 words: lanes (g, t) read 32 banks
+  p.w2_stride = p.cp + 8;
+  p.ks1 = std::min(p.cp, std::max(1, I8_STAGE_WORDS / p.w1_stride / 8) * 32);
+  p.ks2 = std::min(p.hn, std::max(1, I8_STAGE_WORDS / p.w2_stride / 8) * 32);
+  p.stage_elems = std::max(p.ks1 / 4 * p.w1_stride, p.ks2 / 4 * p.w2_stride);
+  p.n1 = (p.cp + p.ks1 - 1) / p.ks1;
+  p.n2 = (p.hn + p.ks2 - 1) / p.ks2;
+  p.chunks = (4 * c + p.hn - 1) / p.hn;
+  const int max_warps = MLP_THREADS / 32;
+  if (p.wn > max_warps) return p;
+  for (int wm = max_warps / p.wn; wm >= 1; wm /= 2) {
+    const int bm = 16 * wm;
+    for (int stages = MAX_STAGES; stages >= 2; --stages) {
+      const size_t bytes = int8_head_bytes(bm) +
+                           std::max((size_t)stages * p.stage_elems * 4 +
+                                        (size_t)bm * (p.a_stride + p.h_stride),
+                                    (size_t)bm * (c + 4) * 4);
+      if (bytes <= (size_t)max_smem) {
+        p.wm = wm;
+        p.stages = stages;
+        p.smem = bytes;
+        return p;
       }
     }
   }
+  return p;
+}
+
+// dequantise an int32 sum: (float)acc * (s * w) + b, rounded as the plain
+// version rounds (no contraction into an FMA)
+__device__ __forceinline__ float dequant(int acc, float s, float w, float b) {
+  return __fadd_rn(__fmul_rn((float)acc, __fmul_rn(s, w)), b);
 }
 
 template <typename T>
-cudaError_t launch_int8(const void* x, const void* dwk, const void* dwb, const float* ns,
-                        const float* nb, const int* w1p, const float* ws1, const void* b1,
-                        const int* w2p, const float* ws2, const void* b2, const void* gamma,
-                        void* out, int n, int h, int w, int c, float eps, int gelu_tanh,
-                        cudaStream_t stream) {
-  const long long total = (long long)n * h * w;
-  const int candidates[4] = {64, 32, 16, 8};
-  const int p = pick_tile(candidates, 4, total, [&](int q) { return smem_bytes_int8(q, c); });
-  if (p < 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes_int8(p, c);
-  cudaError_t err = cudaFuncSetAttribute(fused_block_int8_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(MLP_THREADS, 1)
+ln_mlp_int8_kernel(const float* __restrict__ y, const T* __restrict__ x,
+                   const float* __restrict__ ns, const float* __restrict__ nb,
+                   const int* __restrict__ w1p, const float* __restrict__ ws1,
+                   const T* __restrict__ b1, const int* __restrict__ w2p,
+                   const float* __restrict__ ws2, const T* __restrict__ b2,
+                   const T* __restrict__ gamma, T* __restrict__ out, long long total, int c,
+                   float eps, int gelu_tanh, MlpPlan p) {
+  namespace cg = cooperative_groups;
+  constexpr int HB = I8_HIDDEN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bm = 16 * p.wm;
+  float* s1 = reinterpret_cast<float*>(smem_raw);            // [bm] pw1's input scale a row
+  float* s2 = s1 + bm;                                       // [bm] pw2's
+  unsigned* rowmax = reinterpret_cast<unsigned*>(s2 + bm);   // [bm] max |GELU| (float bits)
+  unsigned char* body = smem_raw + int8_head_bytes(bm);
+  int* wbuf = reinterpret_cast<int*>(body);                  // [stages][stage_elems] words
+  int8_t* As = reinterpret_cast<int8_t*>(wbuf + (size_t)p.stages * p.stage_elems);  // [bm][a_stride]
+  int8_t* Hs = As + (size_t)bm * p.a_stride;                 // [bm][h_stride]
+
+  const int nthreads = blockDim.x, nwarps = nthreads / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / p.wn, wn = warp - wm * p.wn;
+  const int r0 = 16 * wm;
+  const int rank = p.split > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const long long pix0 = (long long)((blockIdx.x - rank) / p.split) * bm;
+  const int chunk0 = rank * (p.chunks / p.split) + min(rank, p.chunks % p.split);
+  const int my_chunks = p.chunks / p.split + (rank < p.chunks % p.split ? 1 : 0);
+  const int c4 = 4 * c;
+  // pass 1 is the first n1 * my_chunks tiles (W1 only), pass 2 the rest
+  // (each chunk's n1 W1 tiles, then its n2 W2 tiles)
+  const int pass1 = my_chunks * p.n1;
+  const int count = pass1 + my_chunks * (p.n1 + p.n2);
+  const int hcol0 = wn * p.hw;
+  const int ocol0 = wn * p.nw, oblocks = max(0, min(p.nw, p.cp - ocol0)) / 8;
+  const int arow = lane & 15, abyte = (lane >> 4) * 16;  // ldmatrix rows and their 16-byte halves
+
+  // tile -> (chunk of this CTA, step within the chunk: W1 tiles < n1 <= W2 tiles)
+  auto step_of = [&](int i) {
+    if (i < pass1) return make_int2(i / p.n1, i % p.n1);
+    const int u = i - pass1, per = p.n1 + p.n2;
+    return make_int2(u / per, u % per);
+  };
+  auto stage_of = [&](int i) { return wbuf + (size_t)(i % p.stages) * p.stage_elems; };
+
+  auto fetch = [&](int i) {
+    int* buf = stage_of(i);
+    const int2 st = step_of(i);
+    const int j0 = (chunk0 + st.x) * p.hn;
+    if (st.y < p.n1) {  // word rows q of W1 (K rows 4q..4q+3), the chunk's HN columns
+      const int q0 = st.y * p.ks1 / 4, rows = min(p.ks1, p.cp - st.y * p.ks1) / 4;
+      const int per_row = p.hn / 4;
+      for (int e = threadIdx.x; e < rows * per_row; e += nthreads) {
+        const int r = e / per_row, col = (e - r * per_row) * 4;
+        const int q = q0 + r, j = j0 + col;
+        const bool ok = 4 * q < c && j < c4;  // 4C % 4 == 0: a copy lies wholly inside or past it
+        cp_async16(buf + r * p.w1_stride + col, ok ? w1p + (long long)q * c4 + j : w1p, ok ? 16 : 0);
+      }
+    } else {  // word rows of W2 (hidden units j..j+3 of the chunk), Cp columns
+      const int q0 = (st.y - p.n1) * p.ks2 / 4;
+      const int rows = min(p.ks2, p.hn - (st.y - p.n1) * p.ks2) / 4, per_row = p.cp / 4;
+      for (int e = threadIdx.x; e < rows * per_row; e += nthreads) {
+        const int r = e / per_row, col = (e - r * per_row) * 4;
+        const int j = j0 + 4 * (q0 + r);
+        const bool ok = j < c4 && col < c;  // C % 4 == 0
+        cp_async16(buf + r * p.w2_stride + col, ok ? w2p + (long long)(j / 4) * c + col : w2p,
+                   ok ? 16 : 0);
+      }
+    }
+  };
+
+  for (int r = threadIdx.x; r < bm; r += nthreads) rowmax[r] = 0u;
+  for (int i = 0; i < p.stages - 1; ++i) {  // the first tiles' copies run under the LN
+    if (i < count) fetch(i);
+    cp_async_commit();
+  }
+
+  // (i) LN over C in fp32, one warp per row, quantised into the A tile with
+  // the row's scale s1
+  if (c <= 192) {
+    for (int r = warp; r < bm; r += 8 * nwarps)
+      ln_rows<int8_t, 8, 3>(As, p.a_stride, p.cp, r, nwarps, bm, pix0, total, y, ns, nb, c, eps, s1);
+  } else {  // C <= MAX_C_INT8
+    for (int r = warp; r < bm; r += 2 * nwarps)
+      ln_rows<int8_t, 2, 12>(As, p.a_stride, p.cp, r, nwarps, bm, pix0, total, y, ns, nb, c, eps, s1);
+  }
+
+  int acc1[HB][4], acc[OUT_BLOCKS][4];
+#pragma unroll
+  for (int i = 0; i < HB; ++i) acc1[i][0] = acc1[i][1] = acc1[i][2] = acc1[i][3] = 0;
+#pragma unroll
+  for (int i = 0; i < OUT_BLOCKS; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
+  float mlo = 0.0f, mhi = 0.0f;  // pass 1: max |GELU| of rows r0 + g, r0 + g + 8 over my columns
+
+  for (int i = 0; i < count; ++i) {
+    if (i == pass1) {
+      // pass 1 is done: the row maxima over the quad, the warps and the
+      // cluster -> s2 (visible to all after the barrier below)
+      mlo = fmaxf(mlo, __shfl_xor_sync(0xffffffffu, mlo, 1));
+      mlo = fmaxf(mlo, __shfl_xor_sync(0xffffffffu, mlo, 2));
+      mhi = fmaxf(mhi, __shfl_xor_sync(0xffffffffu, mhi, 1));
+      mhi = fmaxf(mhi, __shfl_xor_sync(0xffffffffu, mhi, 2));
+      if (t == 0) {
+        atomicMax(rowmax + r0 + g, __float_as_uint(mlo));
+        atomicMax(rowmax + r0 + g + 8, __float_as_uint(mhi));
+      }
+      if (p.split > 1) {
+        cg::this_cluster().sync();
+      } else {
+        __syncthreads();
+      }
+      for (int r = threadIdx.x; r < bm; r += nthreads) {
+        unsigned m = rowmax[r];
+        for (int q = 0; q < p.split && p.split > 1; ++q)
+          m = max(m, cg::this_cluster().map_shared_rank(rowmax, q)[r]);
+        s2[r] = fmaxf(__uint_as_float(m), 1e-8f) * (1.0f / 127.0f);
+      }
+    }
+    switch (p.stages) {  // this thread's copies of the tile have landed
+      case 2: cp_async_wait<0>(); break;
+      case 3: cp_async_wait<1>(); break;
+      case 4: cp_async_wait<2>(); break;
+      case 5: cp_async_wait<3>(); break;
+      case 6: cp_async_wait<4>(); break;
+      case 7: cp_async_wait<5>(); break;
+      default: cp_async_wait<6>(); break;
+    }
+    __syncthreads();  // tile landed for all; A / H / s2 writes visible; the oldest stage is free
+    const int ahead = i + p.stages - 1;
+    if (ahead < count) fetch(ahead);
+    cp_async_commit();
+    const int* buf = stage_of(i);
+    const int2 st = step_of(i);
+    if (st.y < p.n1) {
+      // pw1: acc1 += A[rows, k0 : k0 + krows] . W1 tile
+      const int k0 = st.y * p.ks1, krows = min(p.ks1, p.cp - k0);
+      for (int kk = 0; kk < krows; kk += 32) {
+        unsigned a[4];
+        ldmatrix_x4(a, As + (size_t)(r0 + arow) * p.a_stride + k0 + kk + abyte);
+        const int* br = buf + (kk / 4 + t) * p.w1_stride + hcol0 + g;
+#pragma unroll
+        for (int blk = 0; blk < HB; ++blk)
+          mma_s8(acc1[blk], a, br[blk * 8], br[blk * 8 + 4 * p.w1_stride]);
+      }
+      if (st.y == p.n1 - 1) {
+        // dequantise, + b1, GELU (hidden units past 4C are 0); pass 1 keeps
+        // the row maxima, pass 2 quantises with s2 into the H tile
+        const bool second = i >= pass1;
+        const int j0 = (chunk0 + st.x) * p.hn;
+        const float sa = s1[r0 + g], sb = s1[r0 + g + 8];
+        const float qa = second ? s2[r0 + g] : 1.0f, qb = second ? s2[r0 + g + 8] : 1.0f;
+#pragma unroll
+        for (int blk = 0; blk < HB; ++blk) {
+          const int col = hcol0 + blk * 8 + 2 * t, j = j0 + col;
+          const bool ok = j < c4;  // j even and 4C % 4 == 0: j + 1 < 4C too
+          const float w0 = ok ? ws1[j] : 0.0f, w1 = ok ? ws1[j + 1] : 0.0f;
+          const float bj0 = ok ? to_f<T>(b1[j]) : 0.0f, bj1 = ok ? to_f<T>(b1[j + 1]) : 0.0f;
+          float hv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            hv[e] = ok ? gelu(dequant(acc1[blk][e], e < 2 ? sa : sb, e & 1 ? w1 : w0,
+                                      e & 1 ? bj1 : bj0),
+                              gelu_tanh)
+                       : 0.0f;
+          if (!second) {
+            mlo = fmaxf(mlo, fmaxf(fabsf(hv[0]), fabsf(hv[1])));
+            mhi = fmaxf(mhi, fmaxf(fabsf(hv[2]), fabsf(hv[3])));
+          } else {
+            *reinterpret_cast<unsigned short*>(Hs + (size_t)(r0 + g) * p.h_stride + col) =
+                pack_s8(quant8(hv[0], qa), quant8(hv[1], qa));
+            *reinterpret_cast<unsigned short*>(Hs + (size_t)(r0 + g + 8) * p.h_stride + col) =
+                pack_s8(quant8(hv[2], qb), quant8(hv[3], qb));
+          }
+          acc1[blk][0] = acc1[blk][1] = acc1[blk][2] = acc1[blk][3] = 0;
+        }
+      }
+    } else {
+      // pw2: acc += H[rows, k0 : k0 + krows] . W2 tile
+      const int k0 = (st.y - p.n1) * p.ks2, krows = min(p.ks2, p.hn - k0);
+      for (int kk = 0; kk < krows; kk += 32) {
+        unsigned a[4];
+        ldmatrix_x4(a, Hs + (size_t)(r0 + arow) * p.h_stride + k0 + kk + abyte);
+        const int* br = buf + (kk / 4 + t) * p.w2_stride + ocol0 + g;
+#pragma unroll
+        for (int blk = 0; blk < OUT_BLOCKS; ++blk)
+          if (blk < oblocks) mma_s8(acc[blk], a, br[blk * 8], br[blk * 8 + 4 * p.w2_stride]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  // (iii) out = x + gamma * ((float)O * (s2 * ws2) + b2), as the plain version rounds
+  store_tile(body, acc, bm, r0, ocol0, oblocks, rank, p.split, pix0, total, c,
+             [&](long long pix, int row, int col, int4 o) {
+               const long long at = pix * c + col;
+               const float s = s2[row];
+               const float4 xv = load4(x + at), bv = load4(b2 + col), gv = load4(gamma + col);
+               const float4 wv = *reinterpret_cast<const float4*>(ws2 + col);
+               store4(out + at,
+                      make_float4(__fadd_rn(xv.x, __fmul_rn(dequant(o.x, s, wv.x, bv.x), gv.x)),
+                                  __fadd_rn(xv.y, __fmul_rn(dequant(o.y, s, wv.y, bv.y), gv.y)),
+                                  __fadd_rn(xv.z, __fmul_rn(dequant(o.z, s, wv.z, bv.z), gv.z)),
+                                  __fadd_rn(xv.w, __fmul_rn(dequant(o.w, s, wv.w, bv.w), gv.w))));
+             });
+}
+
+template <typename T>
+cudaError_t launch_ln_mlp_int8(const float* y, const void* x, const float* ns, const float* nb,
+                               const int* w1p, const float* ws1, const void* b1, const int* w2p,
+                               const float* ws2, const void* b2, const void* gamma, void* out,
+                               long long total, int c, float eps, int gelu_tanh,
+                               cudaStream_t stream) {
+  // 16-byte copies of the packed weights, 4-vectors of ws2 (the wrapper's
+  // fresh allocations are aligned)
+  if (reinterpret_cast<uintptr_t>(w1p) % 16 || reinterpret_cast<uintptr_t>(w2p) % 16 ||
+      reinterpret_cast<uintptr_t>(ws2) % 16)
+    return cudaErrorMisalignedAddress;
+  auto kernel = ln_mlp_int8_kernel<T>;
+  int max_smem = 0;
+  cudaError_t err = allow_max_smem(kernel, &max_smem);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((total + p - 1) / p);
-  fused_block_int8_kernel<T><<<blocks, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dwk), static_cast<const T*>(dwb), ns, nb,
-      w1p, ws1, static_cast<const T*>(b1), w2p, ws2, static_cast<const T*>(b2),
-      static_cast<const T*>(gamma), static_cast<T*>(out), n, h, w, c, p, eps, gelu_tanh);
-  return cudaGetLastError();
+  MlpPlan p = plan_mlp_int8(c, max_smem);
+  if (p.wm == 0) return cudaErrorInvalidValue;
+  long long blocks = 0;
+  err = plan_grid(p, total, &blocks);
+  if (err != cudaSuccess) return err;
+  return launch_plan(kernel, p, blocks, stream, y, static_cast<const T*>(x), ns, nb, w1p, ws1,
+                     static_cast<const T*>(b1), w2p, ws2, static_cast<const T*>(b2),
+                     static_cast<const T*>(gamma), static_cast<T*>(out), total, c, eps, gelu_tanh,
+                     p);
 }
 
 }  // namespace
@@ -834,7 +995,8 @@ int mmg_fused_block(int dtype, const void* x, const void* dwk, const void* dwb,
 }
 
 // The block's two halves alone, for timing each: the depthwise front half
-// into ``ws``, and ln_mlp from ``ws``.  Same arguments as mmg_fused_block.
+// into ``ws`` (the fp and the int8 block's), and ln_mlp from ``ws``.  Same
+// arguments as mmg_fused_block.
 int mmg_fused_block_depthwise(int dtype, const void* x, const void* dwk, const void* dwb,
                               float* ws, int n, int h, int w, int c, void* stream) {
   if (!block_args_ok(n, h, w, c)) return (int)cudaErrorInvalidValue;
@@ -860,22 +1022,47 @@ int mmg_fused_block_ln_mlp(int dtype, const float* ws, const void* x, const floa
   return (int)cudaErrorInvalidValue;
 }
 
-// The int8 block.  dtype: 0 = float32, 1 = bfloat16 (x, dwk, dwb, b1, b2,
-// gamma, out); w1p / w2p packed int8 weights and ws1 / ws2 their fp32 scales
-// (see above).  Returns a cudaError_t (0 = success).
+// The int8 block: the depthwise halo tile into ``ws``, then ln_mlp_int8.
+// dtype: 0 = float32, 1 = bfloat16 (x, dwk, dwb, b1, b2, gamma, out); w1p /
+// w2p the packed int8 weights (16-byte aligned) and ws1 / ws2 their fp32
+// scales (see ln_mlp_int8).  C % 4 == 0 and C <= 768.  Returns a
+// cudaError_t (0 = success).
 int mmg_fused_block_int8(int dtype, const void* x, const void* dwk, const void* dwb,
                          const float* ns, const float* nb, const int* w1p, const float* ws1,
                          const void* b1, const int* w2p, const float* ws2, const void* b2,
-                         const void* gamma, void* out, int n, int h, int w, int c, float eps,
-                         int gelu_tanh, void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || c % 4 != 0) return (int)cudaErrorInvalidValue;
+                         const void* gamma, void* out, float* ws, int n, int h, int w, int c,
+                         float eps, int gelu_tanh, void* stream) {
+  if (!block_args_ok(n, h, w, c) || c > MAX_C_INT8 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total = (long long)n * h * w;
+  if (dtype == 0) {
+    const cudaError_t err = dwtile::launch<float, float>(x, dwk, dwb, ws, n, h, w, c, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_ln_mlp_int8<float>(ws, x, ns, nb, w1p, ws1, b1, w2p, ws2, b2, gamma, out,
+                                          total, c, eps, gelu_tanh, s);
+  }
+  const cudaError_t err = dwtile::launch<__nv_bfloat16, float>(x, dwk, dwb, ws, n, h, w, c, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_ln_mlp_int8<__nv_bfloat16>(ws, x, ns, nb, w1p, ws1, b1, w2p, ws2, b2, gamma,
+                                                out, total, c, eps, gelu_tanh, s);
+}
+
+// The int8 block's back half alone (ln_mlp_int8 from ``ws``), for timing.
+int mmg_fused_block_ln_mlp_int8(int dtype, const float* ws, const void* x, const float* ns,
+                                const float* nb, const int* w1p, const float* ws1, const void* b1,
+                                const int* w2p, const float* ws2, const void* b2,
+                                const void* gamma, void* out, int n, int h, int w, int c,
+                                float eps, int gelu_tanh, void* stream) {
+  if (!block_args_ok(n, h, w, c) || c > MAX_C_INT8) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total = (long long)n * h * w;
   if (dtype == 0)
-    return (int)launch_int8<float>(x, dwk, dwb, ns, nb, w1p, ws1, b1, w2p, ws2, b2, gamma, out,
-                                   n, h, w, c, eps, gelu_tanh, s);
+    return (int)launch_ln_mlp_int8<float>(ws, x, ns, nb, w1p, ws1, b1, w2p, ws2, b2, gamma, out,
+                                          total, c, eps, gelu_tanh, s);
   if (dtype == 1)
-    return (int)launch_int8<__nv_bfloat16>(x, dwk, dwb, ns, nb, w1p, ws1, b1, w2p, ws2, b2,
-                                           gamma, out, n, h, w, c, eps, gelu_tanh, s);
+    return (int)launch_ln_mlp_int8<__nv_bfloat16>(ws, x, ns, nb, w1p, ws1, b1, w2p, ws2, b2,
+                                                  gamma, out, total, c, eps, gelu_tanh, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,9 +14,9 @@ LN output rounded to the weight dtype before pw1, the GELU output rounded
 before pw2, fp32 accumulation.
 
 ``fused_convnext_block_int8`` is the same block with int8 pointwise
-products (the JAX ``fused_convnext_block_int8``), launching the int8 route
-of the same source; see ``plain_convnext_block_int8`` for its partition of
-activation scales.
+products (the JAX ``fused_convnext_block_int8``): the same depthwise front
+half, then ``ln_mlp_int8`` on the int8 tensor cores; see
+``plain_convnext_block_int8`` for its partition of activation scales.
 
 The gradient goes through the plain math (``ops.run_kernel``), like the JAX
 ``custom_vjp``; serving never takes it.
@@ -66,9 +66,11 @@ _SIGNATURES = {
     "mmg_fused_block": [_I] + [_P] * 12 + [_I, _I, _I, _I, _F, _I, _P],
     "mmg_fused_block_depthwise": [_I] + [_P] * 4 + [_I, _I, _I, _I, _P],
     "mmg_fused_block_ln_mlp": [_I] + [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P],
-    "mmg_fused_block_int8": [_I] + [_P] * 13 + [_I, _I, _I, _I, _F, _I, _P],
+    "mmg_fused_block_int8": [_I] + [_P] * 14 + [_I, _I, _I, _I, _F, _I, _P],
+    "mmg_fused_block_ln_mlp_int8": [_I] + [_P] * 12 + [_I, _I, _I, _I, _F, _I, _P],
 }
 MAX_C = 1536  # ln_mlp holds 96 output channels a warp, at most 16 warps across
+MAX_C_INT8 = 768  # ln_mlp_int8's LN prologue holds a row in registers
 
 
 def _check_args(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g):
@@ -179,31 +181,46 @@ def plain_convnext_block_int8(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, eps=EPS,
     return (x.float() + out).to(x.dtype)
 
 
-def launch_fused_block_int8(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=False):
-    """Launch the int8 CUDA kernel (CUDA tensors only; raises on any failure).
+def pack_int8_rows(q: torch.Tensor) -> torch.Tensor:
+    """[k, m] int8 (k % 4 == 0) -> [k/4, m] int32: word (i, j) holds rows
+    4i..4i+3 of column j, row 4i in the lowest byte, which is the B fragment
+    of the kernel's int8 ``mma`` (k 4t..4t+3 of column g in one register)."""
+    k, m = q.shape
+    return q.reshape(k // 4, 4, m).permute(0, 2, 1).contiguous().view(torch.int32)[..., 0]
 
-    w1 / w2 arrive in x's dtype and are quantised here, per output channel,
-    and packed four input rows to an int32 word for ``__dp4a``."""
+
+def int8_weights(w1, w2):
+    """The kernel's weights, made on every call: per-output-channel int8
+    (``quantize_weights``), packed by ``pack_int8_rows`` -> (w1p [C/4, 4C],
+    ws1 [4C], w2p [C, C], ws2 [C]), fresh allocations."""
+    w1q, ws1, w2q, ws2 = quantize_weights(w1, w2)
+    return pack_int8_rows(w1q), ws1.contiguous(), pack_int8_rows(w2q), ws2.contiguous()
+
+
+def launch_fused_block_int8(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g, gelu_tanh=False):
+    """Launch the int8 CUDA kernels (CUDA tensors only; raises on any
+    failure): the depthwise front half into an fp32 workspace [n*H*W, C],
+    then ``ln_mlp_int8``.  w1 / w2 arrive in x's dtype and are quantised and
+    packed here (``int8_weights``).  One count per call."""
     if not x.is_cuda:
         raise ValueError("launch_fused_block_int8 needs CUDA tensors")
     _check_args(x, dwk, dwb, ns, nb, w1, b1, w2, b2, g)
     n, h, w, c = x.shape
-    w1q, ws1, w2q, ws2 = quantize_weights(w1, w2)
-
-    def pack(q):  # [k, m] int8 -> [k/4, m] int32, word (i, j) = rows 4i..4i+3 of column j
-        k, m = q.shape
-        return q.reshape(k // 4, 4, m).permute(0, 2, 1).contiguous().view(torch.int32)[..., 0]
-
+    if c > MAX_C_INT8:
+        raise ValueError(f"fused_convnext_block_int8 takes C <= {MAX_C_INT8}, got C={c}")
     args = [t.contiguous() for t in (x, dwk, dwb, ns, nb)]
-    weights = [pack(w1q), ws1.contiguous(), b1.contiguous(), pack(w2q), ws2.contiguous(),
-               b2.contiguous(), g.contiguous()]
+    w1p, ws1, w2p, ws2 = int8_weights(w1, w2)
+    weights = [w1p, ws1, b1.contiguous(), w2p, ws2, b2.contiguous(), g.contiguous()]
+    # 8- and 16-byte vectors: a view off a 16-byte boundary is copied
+    args, weights = ([t if t.data_ptr() % 16 == 0 else t.clone() for t in ts] for ts in (args, weights))
     out = torch.empty_like(args[0])
+    workspace = torch.empty((n * h * w, c), dtype=torch.float32, device=x.device)
     lib = load_typed(_SOURCE, _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = lib.mmg_fused_block_int8(
             _DTYPES[x.dtype], *[t.data_ptr() for t in args + weights],
-            out.data_ptr(), n, h, w, c, EPS, int(bool(gelu_tanh)), stream)
+            out.data_ptr(), workspace.data_ptr(), n, h, w, c, EPS, int(bool(gelu_tanh)), stream)
     check(lib, code, "fused_convnext_block_int8")
     count_launch("fused_convnext_block_int8")
     return out

@@ -2,8 +2,10 @@
 kernel, and its plain PyTorch version.
 
 Counterpart of mmgclip_tpu/ops/fused_downsample.py.  On a CUDA tensor
-``fused_ln_downsample`` launches ``csrc/fused_downsample.cu`` for any H, W
->= 1; on a CPU tensor it runs ``plain_ln_downsample``, the counterpart of
+``fused_ln_downsample`` launches ``csrc/fused_downsample.cu`` (an LN-prologue
+GEMM on the tensor cores: the 2x2 patches as rows of A [M, 4 Cin], the
+kernel as W [4 Cin, Cout]) for any H, W >= 1 and Cin, Cout multiples of 4;
+on a CPU tensor it runs ``plain_ln_downsample``, the counterpart of
 the JAX ``_lax_ln_downsample``: LayerNorm in fp32 (two-pass variance, eps
 1e-6), the result rounded to x's dtype, zero padding bottom/right to even
 H, W after the norm (so odd sizes come out as the JAX tower's LN-then-pad
@@ -41,6 +43,7 @@ def plain_ln_downsample(x, ns, nb, kernel, bias, eps=EPS):
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {"mmg_fused_downsample": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         ctypes.c_float, _P]}
+MAX_CHANNELS = 1536  # 96 output columns a warp, at most 16 warps across
 
 
 def _check_args(x, ns, nb, kernel, bias):
@@ -53,6 +56,9 @@ def _check_args(x, ns, nb, kernel, bias):
         raise ValueError(f"kernel must be {x.dtype} [2, 2, {cin}, Cout], "
                          f"got {kernel.dtype} {tuple(kernel.shape)}")
     cout = kernel.shape[3]
+    if cin % 4 or cout % 4 or max(cin, cout) > MAX_CHANNELS:
+        raise ValueError(f"the downsample kernel takes Cin and Cout multiples of 4 and <= "
+                         f"{MAX_CHANNELS}, got Cin={cin}, Cout={cout}")
     for name, t, shape, dtype in (("ns", ns, (cin,), torch.float32),
                                   ("nb", nb, (cin,), torch.float32),
                                   ("bias", bias, (cout,), x.dtype)):
@@ -69,7 +75,9 @@ def launch_fused_ln_downsample(x, ns, nb, kernel, bias):
     if not x.is_cuda:
         raise ValueError("launch_fused_ln_downsample needs CUDA tensors")
     _check_args(x, ns, nb, kernel, bias)
-    x, ns, nb, kernel, bias = (t.contiguous() for t in (x, ns, nb, kernel, bias))
+    # 8- and 16-byte vectors: a view off a 16-byte boundary is copied
+    x, ns, nb, kernel, bias = (t if t.data_ptr() % 16 == 0 else t.clone()
+                               for t in (t.contiguous() for t in (x, ns, nb, kernel, bias)))
     n, h, w, cin = x.shape
     cout = kernel.shape[3]
     out = torch.empty(n, -(-h // 2), -(-w // 2), cout, dtype=x.dtype, device=x.device)

@@ -69,6 +69,14 @@ def test_the_block_entry_point_takes_the_workspace():
     assert kinds[:13] == ["int"] + ["pointer"] * 12 and len(kinds) == 20
 
 
+def test_the_int8_block_entry_point_takes_the_workspace():
+    """x, dwk, dwb, ns, nb, w1p, ws1, b1, w2p, ws2, b2, gamma, out and the
+    fp32 workspace of the depthwise front half, as ``mmg_fused_block``."""
+    kinds = prototypes("fused_block.cu")["mmg_fused_block_int8"]
+    assert kinds[:15] == ["int"] + ["pointer"] * 14 and len(kinds) == 22
+    assert kinds[15:] == ["int"] * 4 + ["float", "int", "pointer"]
+
+
 def test_a_header_change_rebuilds_every_library(tmp_path, monkeypatch):
     """``_library_path`` keys each library on every ``csrc/*.cuh``: editing
     ``depthwise_tile.cuh`` rebuilds both the depthwise and the block library

@@ -8,7 +8,8 @@ machine without it, where the repository's conftest cannot load:
 
 Tolerances: fp32 1e-4 relative to the largest output (the block, stem,
 downsample and depthwise kernels) and 1e-5 absolute (attention), TF32 off;
-a second launch of the block on the same inputs bit-equal to the first;
+a second launch of the block, the int8 block and the downsample on the same
+inputs bit-equal to the first;
 bf16 two bf16 steps of the largest output (the two sides round at different
 points); the int8 block 2**-5 relative against its same-partition plain
 version (a rounding flip moves a value by one quantisation step); the ring
@@ -198,8 +199,14 @@ def assert_rel(out, ref, tol):
     assert (out - ref).abs().max().item() <= tol * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("shape", [(1, 7, 5, 8), (2, 13, 11, 32), (1, 1, 1, 96),
-                                   (1, 64, 52, 96), (2, 8, 7, 768), (1, 20, 17, 384)])
+# C = 8, 16, 20 and 32 pad the mma's K to 32 (the micro tower's 8 / 16 / 32,
+# and C = 20 past a multiple of 16); odd H and W; (32, 1, 1, 768) the micro
+# tower's last stage, a cluster split; (2, 32, 26, 768) and (1, 574, 479,
+# 96) stage shapes of the feature store
+@pytest.mark.parametrize("shape", [(1, 7, 5, 8), (1, 5, 7, 16), (2, 13, 11, 20), (2, 13, 11, 32),
+                                   (1, 1, 1, 96), (1, 64, 52, 96), (2, 8, 7, 768), (1, 20, 17, 384),
+                                   (1, 7, 9, 768), (32, 1, 1, 768), (2, 32, 26, 768),
+                                   (1, 574, 479, 96)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gelu_tanh", [False, True])
 def test_int8_block_kernel_matches_plain(cuda_device, shape, dtype, gelu_tanh):
@@ -211,6 +218,28 @@ def test_int8_block_kernel_matches_plain(cuda_device, shape, dtype, gelu_tanh):
     assert out.dtype == dtype
     # the residual dominates x + gamma * mlp: hold the block's own term
     assert_rel(out.float() - x.float(), ref.float() - x.float(), INT8_REL_TOL)
+
+
+def same_bits(a, b):
+    return torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+                       b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 11, 20), (2, 32, 26, 768), (32, 1, 1, 768),
+                                   (1, 64, 52, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_block_kernel_repeats_its_bits(cuda_device, shape, dtype):
+    """The row maxima by atomicMax and the int32 partial sums across a
+    cluster are order-free: two launches, the same bits."""
+    x, params = block_inputs(shape, dtype, cuda_device, seed=5)
+    assert same_bits(launch_fused_block_int8(x, *params, gelu_tanh=True),
+                     launch_fused_block_int8(x, *params, gelu_tanh=True))
+
+
+def test_int8_block_kernel_refuses_channels_past_its_tiles(cuda_device):
+    x, params = block_inputs((1, 1, 1, 772), torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="C <= 768"):
+        launch_fused_block_int8(x, *params)
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 5, 1), (2, 13, 11, 3), (1, 1, 1, 3), (1, 64, 52, 1),
@@ -234,24 +263,46 @@ def test_stem_kernel_matches_plain(cuda_device, shape, dtypes):
     assert_rel(out, ref, BLOCK_FP32_REL_TOL if x_dtype == torch.float32 else BF16_REL_TOL)
 
 
-@pytest.mark.parametrize("shape,cout", [((1, 7, 5, 8), 16), ((2, 13, 11, 32), 64),
-                                        ((1, 1, 1, 96), 192), ((1, 64, 52, 96), 192),
-                                        ((1, 9, 7, 384), 768), ((1, 287, 240, 192), 384)])
+def downsample_inputs(shape, cout, dtype, device, seed=6):
+    rng = np.random.default_rng(seed)
+    cin = shape[-1]
+    return (tensor(rng, *shape).to(device, dtype), tensor(rng, cin, scale=0.1, offset=1.0).to(device),
+            tensor(rng, cin, scale=0.1).to(device),
+            tensor(rng, 2, 2, cin, cout, scale=(4 * cin) ** -0.5).to(device, dtype),
+            tensor(rng, cout, scale=0.1).to(device, dtype))
+
+
+# Cin = 8 and 16 (the micro tower; K = 32 and 64), odd H and W, Cout = 20 (not
+# a multiple of 8: plain weight loads in bf16), (32, 2, 2, 32) -> 768 the
+# micro tower's last, (1, 574, 479, 96) -> 192 the full-field first
+@pytest.mark.parametrize("shape,cout", [((1, 7, 5, 8), 16), ((2, 9, 13, 8), 16), ((1, 7, 5, 16), 32),
+                                        ((2, 13, 11, 16), 20), ((2, 13, 11, 32), 64),
+                                        ((32, 2, 2, 32), 768), ((1, 1, 1, 96), 192),
+                                        ((1, 64, 52, 96), 192), ((1, 9, 7, 384), 768),
+                                        ((1, 287, 240, 192), 384), ((1, 574, 479, 96), 192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_downsample_kernel_matches_plain(cuda_device, shape, cout, dtype):
-    rng = np.random.default_rng(6)
-    cin = shape[-1]
-    x = tensor(rng, *shape).to(cuda_device, dtype)
-    ns = tensor(rng, cin, scale=0.1, offset=1.0).to(cuda_device)
-    nb = tensor(rng, cin, scale=0.1).to(cuda_device)
-    k = tensor(rng, 2, 2, cin, cout, scale=(4 * cin) ** -0.5).to(cuda_device, dtype)
-    b = tensor(rng, cout, scale=0.1).to(cuda_device, dtype)
+    x, ns, nb, k, b = downsample_inputs(shape, cout, dtype, cuda_device)
     before = launch_counts()["fused_ln_downsample"]
     out = launch_fused_ln_downsample(x, ns, nb, k, b)
     assert launch_counts()["fused_ln_downsample"] == before + 1
     ref = plain_ln_downsample(x, ns, nb, k, b)
     assert out.shape == ref.shape
     assert_rel(out, ref, BLOCK_FP32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL)
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 13, 11, 16), 32), ((1, 287, 240, 192), 384),
+                                        ((2, 72, 60, 384), 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_downsample_kernel_repeats_its_bits(cuda_device, shape, cout, dtype):
+    args = downsample_inputs(shape, cout, dtype, cuda_device, seed=7)
+    assert same_bits(launch_fused_ln_downsample(*args), launch_fused_ln_downsample(*args))
+
+
+def test_downsample_kernel_refuses_channels_it_does_not_take(cuda_device):
+    args = downsample_inputs((1, 4, 4, 6), 16, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        launch_fused_ln_downsample(*args)
 
 
 def depthwise_inputs(shape, dtype, device, seed=7):
@@ -278,7 +329,8 @@ def test_depthwise_kernel_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.parametrize("case", ["flash float32", "flash bfloat16", "depthwise float32",
-                                  "depthwise bfloat16", "block float32", "block bfloat16"])
+                                  "depthwise bfloat16", "block float32", "block bfloat16",
+                                  "int8 bfloat16", "downsample bfloat16"])
 def test_back_to_back_launches_stay_exact(cuda_device, case):
     """50 launches queued with no synchronisation, each on new inputs: a
     double-buffered copy that left a stale tile would show at the end."""
@@ -296,10 +348,15 @@ def test_back_to_back_launches_stay_exact(cuda_device, case):
             args = depthwise_inputs((2, 32, 26, 768) if i % 2 else (2, 64, 52, 384), dtype,
                                     cuda_device, seed=i)
             calls.append((args, launch_depthwise_conv7x7(*args)))
+        elif kind == "downsample":
+            args = downsample_inputs(*(((2, 72, 60, 384), 768) if i % 2 else ((2, 64, 52, 96), 192)),
+                                     dtype, cuda_device, seed=i)
+            calls.append((args, launch_fused_ln_downsample(*args)))
         else:
             x, params = block_inputs((2, 32, 26, 768) if i % 2 else (2, 64, 52, 96), dtype,
                                      cuda_device, seed=i)
-            calls.append(((x, *params), launch_fused_block(x, *params)))
+            launch = launch_fused_block_int8 if kind == "int8" else launch_fused_block
+            calls.append(((x, *params), launch(x, *params)))
     torch.cuda.synchronize()
     tol = BLOCK_FP32_REL_TOL if dtype == torch.float32 else BF16_REL_TOL
     for args, out in calls:
@@ -309,6 +366,11 @@ def test_back_to_back_launches_stay_exact(cuda_device, case):
             assert_flash_close(out, attention_reference(q, k, v, mask), dtype)
         elif kind == "depthwise":
             assert_rel(out, plain_depthwise_conv7x7(*args), tol)
+        elif kind == "downsample":
+            assert_rel(out, plain_ln_downsample(*args), tol)
+        elif kind == "int8":
+            x = args[0].float()
+            assert_rel(out.float() - x, plain_convnext_block_int8(*args).float() - x, INT8_REL_TOL)
         else:
             assert_rel(out, plain_convnext_block(*args), tol)
 
