@@ -401,6 +401,18 @@ def glue_inputs(kind, shape, dtype, gen, device, cout=None):
     return [r(*shape).to(device, dtype), *block_params(c, dtype, gen, device)]
 
 
+def stem_by_library(x, k, b, ns, nb):
+    """The stem as library calls, timed beside the kernel and never used by
+    the port: F.conv2d 4x4/4 on the input cast to the weight dtype and
+    zero-padded bottom/right (``br_pad``), then F.layer_norm in fp32."""
+    import torch.nn.functional as F
+
+    h, w = x.shape[1:3]
+    xc = F.pad(x.to(k.dtype), (0, 0, 0, (-w) % 4, 0, (-h) % 4)).permute(0, 3, 1, 2)
+    y = F.conv2d(xc, k.permute(3, 2, 0, 1), b, stride=4).permute(0, 2, 3, 1).float()
+    return F.layer_norm(y, (k.shape[3],), ns, nb, 1e-6).to(x.dtype)
+
+
 def glue_kernels():
     from mmgclip_tpu_torch.ops.depthwise_conv import launch_depthwise_conv7x7, plain_depthwise_conv7x7
     from mmgclip_tpu_torch.ops.fused_block import launch_fused_block_int8, plain_convnext_block_int8
@@ -746,6 +758,11 @@ def timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts):
                     extra = (f" = depthwise half {parts['depthwise_ms']:.4f} + ln_mlp_int8 "
                              f"{parts['ln_mlp_ms']:.4f} + weights quantised and packed "
                              f"{parts['quant_pack_ms']:.4f}")
+                if kind == "stem":  # two library calls, so logged only: library_ms stays none
+                    two = device_ms(lambda: stem_by_library(*args))
+                    diff, _ = rel_err(stem_by_library(*args), plain(*args))
+                    extra = (f"; two library calls (F.conv2d 4x4/4 + F.layer_norm, after the cast "
+                             f"and br_pad copy) {two:.4f} ms, max_abs {diff:.3e} from plain")
                 host = time_ms(lambda: launch(*args))
                 bms, by = {"stem": lambda: stem_bound(shape, cout, torch.float32, dtype, peaks),
                            "downsample": lambda: downsample_bound(shape, cout, dtype, peaks),

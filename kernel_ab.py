@@ -1,10 +1,10 @@
-"""Time the flash attention, depthwise, fp / bf16 block, int8 block and
-downsample kernels of two checkouts on one card.
+"""Time the flash attention, depthwise, fp / bf16 block, int8 block,
+downsample and stem kernels of two checkouts on one card.
 
-    python3 kernel_ab.py --parent <directory holding the other checkout> [--out <json>]
+    python3 kernel_ab.py --parent <directory holding the other checkout> [--out <json>] [--only <text>]
 
 Builds ``mmgclip_tpu_torch/csrc/{flash_attention,depthwise_conv,fused_block,
-fused_downsample}.cu`` of the other checkout (unpacked with ``git archive``)
+fused_downsample,fused_stem}.cu`` of the other checkout (unpacked with ``git archive``)
 with this tree's ``nvcc`` flags and loads both trees' libraries through
 ctypes, each tree's entry points typed by that tree's own ``_SIGNATURES``
 (read from its ``ops/*.py`` source): ``mmg_fused_block`` and
@@ -22,12 +22,17 @@ parent, on the same inputs and preallocated outputs:
   full-field stage-1 shape alone;
 * int8: the 18 int8 blocks of a 2 x 2294x1914 feature-store bucket, bf16
   and fp32, on weights quantised and packed once (both trees pack alike);
-* downsample: the three downsamples of the same bucket, bf16 and fp32.
+* downsample: the three downsamples of the same bucket, bf16 and fp32;
+* stem: the stem of the same bucket (fp32 input, 3 -> 96) with bf16 and
+  with fp32 weights, and the micro tower's (32 x 32x32x1 -> 8, bf16
+  weights: phase 15's bucket).
 
 The two trees' outputs are held against each other with chip_smoke's
-tolerances (the int8 blocks' own term x + mlp - x within ``INT8_REL_TOL``).
+tolerances (the int8 blocks' own term x + mlp - x within ``INT8_REL_TOL``;
+the stem, whose input is fp32, within ``FP32_REL_TOL``).
 One line per case is printed and all of them are written to ``--out``
-(default ``outputs/kernel_ab.json``).
+(default ``outputs/kernel_ab.json``); ``--only`` keeps the cases whose label
+contains the text.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ KERNELS = {  # source -> the ops module that registers its entry points
     "depthwise_conv.cu": "depthwise_conv",
     "fused_block.cu": "fused_block",
     "fused_downsample.cu": "fused_downsample",
+    "fused_stem.cu": "fused_stem",
 }
 EPS = 1e-6  # the block's LayerNorm epsilon (ops.fused_block.EPS)
 
@@ -188,6 +194,20 @@ def downsample_items(pairs, dtype, rng, device):
     return items
 
 
+def stem_items(shape, cout, w_dtype, rng, device):
+    """chip_smoke.glue_inputs's scales for the stem: fp32 x [n, H, W, Cin],
+    weights [4, 4, Cin, Cout] and bias in ``w_dtype``, fp32 LN affine."""
+    cin = shape[-1]
+
+    def r(*s, scale=1.0, offset=0.0, dt=torch.float32):
+        return torch.from_numpy((offset + rng.standard_normal(s) * scale).astype(np.float32)).to(device, dt)
+
+    args = (r(*shape), r(4, 4, cin, cout, scale=(16 * cin) ** -0.5, dt=w_dtype), r(cout, scale=0.1, dt=w_dtype),
+            r(cout, scale=0.1, offset=1.0), r(cout, scale=0.1))
+    n, h, w, _ = shape
+    return [(args, torch.empty(n, -(-h // 4), -(-w // 4), cout, device=device), 1)]
+
+
 def launcher(kind, lib):
     stream = torch.cuda.current_stream().cuda_stream
     if kind == "flash":
@@ -210,6 +230,13 @@ def launcher(kind, lib):
             return lib.mmg_fused_downsample(DTYPE_CODES[x.dtype], x.data_ptr(), ns.data_ptr(),
                                             nb.data_ptr(), k.data_ptr(), b.data_ptr(), out.data_ptr(),
                                             n, h, wd, cin, k.shape[-1], EPS, stream)
+    elif kind == "stem":
+        def call(args, out):
+            x, k, b, ns, nb = args
+            n, h, wd, cin = x.shape
+            return lib.mmg_fused_stem(DTYPE_CODES[x.dtype], DTYPE_CODES[k.dtype], x.data_ptr(), k.data_ptr(),
+                                      b.data_ptr(), ns.data_ptr(), nb.data_ptr(), out.data_ptr(), n, h, wd,
+                                      cin, k.shape[-1], EPS, stream)
     else:
         # the parents' entry points have no workspace
         entry = lib.mmg_fused_block_int8 if kind == "int8" else lib.mmg_fused_block
@@ -241,6 +268,8 @@ def agree(kind, dtype, a, b, x):
     scale = b.float().abs().max().item()
     if kind == "int8":
         return err, err <= INT8_REL_TOL * scale
+    if kind == "stem":  # fp32 input, whatever the weights
+        return err, err <= FP32_REL_TOL * scale
     if dtype == torch.bfloat16:
         return err, err <= BF16_REL_TOL * scale
     if kind == "flash":
@@ -252,6 +281,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", required=True, help="root of the other checkout")
     parser.add_argument("--out", default=os.path.join(REPO, "outputs", "kernel_ab.json"))
+    parser.add_argument("--only", default="", help="run only the cases whose label contains this")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", flush=True)
@@ -292,12 +322,17 @@ def main(argv=None) -> int:
             cases.append((f"downsample 3 of 2x{FFDM_SHAPES[0][0]}x{FFDM_SHAPES[0][1]}", "downsample",
                           dtype, downsample_items([(s, d[-1]) for s, d in zip(store, store[1:])], dtype,
                                                   rng, device)))
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"stem of 2x{FFDM_SHAPES[0][0]}x{FFDM_SHAPES[0][1]}x3 -> 96, fp32 x", "stem", dtype,
+                          stem_items((2, *FFDM_SHAPES[0], 3), 96, dtype, rng, device)))
+        cases.append(("stem micro tower 32x32x32x1 -> 8, fp32 x", "stem", torch.bfloat16,
+                      stem_items((32, 32, 32, 1), 8, torch.bfloat16, rng, device)))
 
         rows = []
-        for label, kind, dtype, items in cases:
+        for label, kind, dtype, items in [c for c in cases if args.only in c[0]]:
             source = {"flash": "flash_attention.cu", "depthwise": "depthwise_conv.cu",
                       "block": "fused_block.cu", "int8": "fused_block.cu",
-                      "downsample": "fused_downsample.cu"}[kind]
+                      "downsample": "fused_downsample.cu", "stem": "fused_stem.cu"}[kind]
             runs = {"parent": launcher(kind, parent[source]), "change": launcher(kind, change[source])}
             outs = {}
             for tree, run in runs.items():  # one checked call each: the outputs to compare

@@ -2,10 +2,11 @@
 its plain PyTorch version.
 
 Counterpart of mmgclip_tpu/ops/fused_stem.py.  On a CUDA tensor
-``fused_stem`` launches ``csrc/fused_stem.cu`` for any H, W >= 1 (the
-kernel reads the 4x4 patches straight from the NHWC input; the TPU's patch
-gather outside the kernel and its VMEM bands do not carry over); on a CPU
-tensor it runs ``plain_stem``.  Both round the patches to the kernel's dtype,
+``fused_stem`` launches ``csrc/fused_stem.cu`` for any H, W >= 1, Cin <= 4
+and Cout <= 256 (persistent CTAs stage the four input rows of a 64-pixel
+output row segment by ``cp.async`` and run the patch products on the tensor
+cores; the TPU's patch gather outside the kernel and its VMEM bands do not
+carry over); on a CPU tensor it runs ``plain_stem``.  Both round the patches to the kernel's dtype,
 accumulate in fp32, add the bias, run the LayerNorm in fp32 over the output
 channels and return x's dtype, as the JAX kernel does.  Bottom/right zero
 padding to a multiple of 4 is the JAX tower's ``br_pad``.
@@ -22,6 +23,7 @@ from . import count_launch, run_kernel
 from ._build import check, load_typed
 
 EPS = 1e-6
+MAX_CIN, MAX_COUT = 4, 256  # the kernel's limits (K = 16 Cin <= 64, N <= 256)
 _SOURCE = "fused_stem.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -78,6 +80,9 @@ def launch_fused_stem(x, kernel, bias, ns, nb):
     if not x.is_cuda:
         raise ValueError("launch_fused_stem needs CUDA tensors")
     _check_args(x, kernel, bias, ns, nb)
+    if x.shape[-1] > MAX_CIN or kernel.shape[3] > MAX_COUT:
+        raise ValueError(f"the stem kernel takes Cin <= {MAX_CIN} and Cout <= {MAX_COUT}, "
+                         f"got Cin {x.shape[-1]}, Cout {kernel.shape[3]}")
     x, kernel, bias, ns, nb = (t.contiguous() for t in (x, kernel, bias, ns, nb))
     n, h, w, cin = x.shape
     cout = kernel.shape[3]

@@ -15,6 +15,7 @@ import re
 import pytest
 
 import block_sweep
+import stem_sweep
 from mmgclip_tpu_torch.ops import _build, depthwise_conv, flash_attention, fused_block
 from mmgclip_tpu_torch.ops import fused_downsample, fused_stem
 from mmgclip_tpu_torch.parallel import collectives
@@ -102,4 +103,14 @@ def test_block_sweep_variants_match_the_source(variant):
     with open(os.path.join(_build.CSRC_DIR, "fused_block.cu")) as fh:
         text = fh.read()
     changed = block_sweep.variant_source(text, variant)
+    assert (changed == text) == (variant == "base")
+
+
+@pytest.mark.parametrize("variant", sorted(stem_sweep.VARIANTS))
+def test_stem_sweep_variants_match_the_source(variant):
+    """Each variant of ``stem_sweep.py`` finds its lines in ``fused_stem.cu``
+    as many times as it expects, so the sweep times what it names."""
+    with open(os.path.join(_build.CSRC_DIR, "fused_stem.cu")) as fh:
+        text = fh.read()
+    changed = stem_sweep.variant_source(text, variant)
     assert (changed == text) == (variant == "base")

@@ -242,25 +242,51 @@ def test_int8_block_kernel_refuses_channels_past_its_tiles(cuda_device):
         launch_fused_block_int8(x, *params)
 
 
-@pytest.mark.parametrize("shape", [(1, 7, 5, 1), (2, 13, 11, 3), (1, 1, 1, 3), (1, 64, 52, 1),
-                                   (1, 130, 97, 3)])
-@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-                                    (torch.bfloat16, torch.bfloat16)])
-def test_stem_kernel_matches_plain(cuda_device, shape, dtypes):
+def stem_inputs(shape, cout, dtypes, device, seed=5):
     x_dtype, w_dtype = dtypes
-    rng = np.random.default_rng(5)
-    cin, cout = shape[-1], 96
-    x = tensor(rng, *shape).to(cuda_device, x_dtype)
-    k = tensor(rng, 4, 4, cin, cout, scale=(16 * cin) ** -0.5).to(cuda_device, w_dtype)
-    b = tensor(rng, cout, scale=0.1).to(cuda_device, w_dtype)
-    ns = tensor(rng, cout, scale=0.1, offset=1.0).to(cuda_device)
-    nb = tensor(rng, cout, scale=0.1).to(cuda_device)
+    rng = np.random.default_rng(seed)
+    cin = shape[-1]
+    return (tensor(rng, *shape).to(device, x_dtype),
+            tensor(rng, 4, 4, cin, cout, scale=(16 * cin) ** -0.5).to(device, w_dtype),
+            tensor(rng, cout, scale=0.1).to(device, w_dtype),
+            tensor(rng, cout, scale=0.1, offset=1.0).to(device), tensor(rng, cout, scale=0.1).to(device))
+
+
+# odd H and W down to 1 x 1, Cin 1 and 3; (1, 9, 1914, 3): an input row
+# pitch of 22,968 bytes, not a multiple of 16 (the full-field width);
+# (2, 800, 1000, 3): 1,600 tiles of 64 output pixels, more than the
+# persistent CTAs, the last of every row ragged (58 pixels); Cout 8 (the
+# micro tower), 20 (not a multiple of 8) and 96
+@pytest.mark.parametrize("shape", [(1, 7, 5, 1), (2, 13, 11, 3), (1, 1, 1, 3), (1, 64, 52, 1),
+                                   (1, 130, 97, 3), (1, 9, 1914, 3), (2, 800, 1000, 3)])
+@pytest.mark.parametrize("cout", [8, 20, 96])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_stem_kernel_matches_plain(cuda_device, shape, cout, dtypes):
+    x_dtype = dtypes[0]
+    x, k, b, ns, nb = stem_inputs(shape, cout, dtypes, cuda_device)
     before = launch_counts()["fused_stem"]
     out = launch_fused_stem(x, k, b, ns, nb)
     assert launch_counts()["fused_stem"] == before + 1
     ref = plain_stem(x, k, b, ns, nb)
     assert out.shape == ref.shape and out.dtype == x_dtype
     assert_rel(out, ref, BLOCK_FP32_REL_TOL if x_dtype == torch.float32 else BF16_REL_TOL)
+
+
+@pytest.mark.parametrize("shape,cout", [((1, 9, 1914, 3), 96), ((2, 800, 1000, 3), 96),
+                                        ((3, 33, 31, 1), 8), ((1, 13, 270, 3), 20)])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_stem_kernel_repeats_its_bits(cuda_device, shape, cout, dtypes):
+    x, k, b, ns, nb = stem_inputs(shape, cout, dtypes, cuda_device, seed=7)
+    assert same_bits(launch_fused_stem(x, k, b, ns, nb), launch_fused_stem(x, k, b, ns, nb))
+
+
+@pytest.mark.parametrize("cin,cout", [(5, 96), (3, 264)])
+def test_stem_kernel_refuses_channels_past_its_limits(cuda_device, cin, cout):
+    x, k, b, ns, nb = stem_inputs((1, 8, 8, cin), cout, (torch.float32, torch.bfloat16), cuda_device)
+    with pytest.raises(ValueError, match="Cin <= 4 and Cout <= 256"):
+        launch_fused_stem(x, k, b, ns, nb)
 
 
 def downsample_inputs(shape, cout, dtype, device, seed=6):
@@ -330,7 +356,8 @@ def test_depthwise_kernel_matches_plain(cuda_device, shape, dtype):
 
 @pytest.mark.parametrize("case", ["flash float32", "flash bfloat16", "depthwise float32",
                                   "depthwise bfloat16", "block float32", "block bfloat16",
-                                  "int8 bfloat16", "downsample bfloat16"])
+                                  "int8 bfloat16", "downsample bfloat16", "stem float32",
+                                  "stem bfloat16"])
 def test_back_to_back_launches_stay_exact(cuda_device, case):
     """50 launches queued with no synchronisation, each on new inputs: a
     double-buffered copy that left a stale tile would show at the end."""
@@ -352,6 +379,10 @@ def test_back_to_back_launches_stay_exact(cuda_device, case):
             args = downsample_inputs(*(((2, 72, 60, 384), 768) if i % 2 else ((2, 64, 52, 96), 192)),
                                      dtype, cuda_device, seed=i)
             calls.append((args, launch_fused_ln_downsample(*args)))
+        elif kind == "stem":  # x in the case's dtype, bf16 weights; the stages wrap
+            args = stem_inputs((2, 130, 1000, 3) if i % 2 else (1, 9, 1914, 3), 96,
+                               (dtype, torch.bfloat16), cuda_device, seed=i)
+            calls.append((args, launch_fused_stem(*args)))
         else:
             x, params = block_inputs((2, 32, 26, 768) if i % 2 else (2, 64, 52, 96), dtype,
                                      cuda_device, seed=i)
@@ -368,6 +399,8 @@ def test_back_to_back_launches_stay_exact(cuda_device, case):
             assert_rel(out, plain_depthwise_conv7x7(*args), tol)
         elif kind == "downsample":
             assert_rel(out, plain_ln_downsample(*args), tol)
+        elif kind == "stem":
+            assert_rel(out, plain_stem(*args), tol)
         elif kind == "int8":
             x = args[0].float()
             assert_rel(out.float() - x, plain_convnext_block_int8(*args).float() - x, INT8_REL_TOL)

@@ -2,7 +2,7 @@
 machine lacks.
 
 An AST check over every module of ``mmgclip_tpu_torch``, ``chip_smoke.py``,
-``kernel_ab.py`` and ``block_sweep.py`` refuses imports of the JAX package and of packages that machine does not
+``kernel_ab.py``, ``block_sweep.py`` and ``stem_sweep.py`` refuses imports of the JAX package and of packages that machine does not
 have, and a subprocess with those packages blocked in ``sys.modules`` (and
 matplotlib and tensorboard, which the evaluator and the scalar writer only
 try) imports every port module, runs the micro serving path on the CPU, and
@@ -26,7 +26,8 @@ BLOCKED = FORBIDDEN + ("matplotlib", "tensorboard")
 
 
 def port_sources():
-    paths = [os.path.join(REPO, name) for name in ("chip_smoke.py", "kernel_ab.py", "block_sweep.py")]
+    paths = [os.path.join(REPO, name) for name in ("chip_smoke.py", "kernel_ab.py", "block_sweep.py",
+                                                 "stem_sweep.py")]
     for root, _dirs, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(os.path.relpath(p, REPO) for p in paths)

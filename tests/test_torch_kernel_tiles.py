@@ -14,6 +14,13 @@ torch on the CPU (the kernels themselves run only on the card, in
   into row p of its A tile at column (dy * 2 + dx) * Cin + ci; that row
   order must be ``patchify(., 2)``'s, which the plain version and the JAX
   lax math use.
+* ``csrc/fused_stem.cu`` stages, per tile of ``STEM_TILE`` output pixels of
+  one output row, the four input row spans and reads each A-fragment value
+  k = dy * 4 Cin + r of pixel p from element 4 p Cin + r of staged row dy,
+  zero past the span (past W, past H).  That A tile must be ``patchify(.,
+  4)``'s bit for bit; the products (bf16 per k step of 16, or the three-pass
+  TF32 split per k step of 8 in a fresh sum) over N padded to 8, and the LN
+  over the true Cout, must give ``plain_stem``'s output.
 """
 
 import jax.numpy as jnp
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from mmgclip_tpu.ops.fused_downsample import _lax_ln_downsample
+from mmgclip_tpu.ops.fused_stem import _lax_stem
 from mmgclip_tpu_torch.ops.fused_block import (
     EPS,
     INV_127,
@@ -32,7 +40,8 @@ from mmgclip_tpu_torch.ops.fused_block import (
     quantize_weights,
 )
 from mmgclip_tpu_torch.ops.fused_downsample import plain_ln_downsample
-from mmgclip_tpu_torch.ops.fused_stem import patchify
+from mmgclip_tpu_torch.ops.fused_stem import EPS as STEM_EPS
+from mmgclip_tpu_torch.ops.fused_stem import patchify, plain_stem
 from mmgclip_tpu_torch.ops.quant import EPS as QUANT_EPS
 from mmgclip_tpu_torch.ops.quant import int8_matmul
 
@@ -195,3 +204,104 @@ def test_downsample_a_tile_order_is_patchify(shape, cout):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
     lax = np.asarray(_lax_ln_downsample(*map(jnp.asarray, (x, ns, nb, k, b))))
     np.testing.assert_allclose(out.numpy(), lax, rtol=1e-5, atol=1e-5)
+
+
+# ---- stem ----------------------------------------------------------------
+STEM_TILE = 64  # output pixels of a tile of csrc/fused_stem.cu (16 a warp, 4 warps)
+
+
+def stem_staged_rows(x, img, oy, ox0):
+    """The four input row spans of one tile as the kernel stages them: row dy
+    holds x[img, 4 oy + dy, 4 ox0 :, :] flattened, ``lens[dy]`` elements (0
+    past H); what lies past a span is stale (NaN here), so only the guard
+    keeps it out."""
+    _n, h, w, cin = x.shape
+    count = min(4 * STEM_TILE, w - 4 * ox0) * cin
+    rows = torch.full((4, 4 * STEM_TILE * cin), float("nan"), dtype=x.dtype)
+    lens = []
+    for dy in range(4):
+        yy = 4 * oy + dy
+        lens.append(count if yy < h else 0)
+        if yy < h:
+            rows[dy, :count] = x[img, yy].reshape(-1)[4 * ox0 * cin:4 * ox0 * cin + count]
+    return rows, lens
+
+
+def stem_a_tile(rows, lens, cin):
+    """A [STEM_TILE, 16 Cin]: column k = dy * 4 Cin + r of pixel p is element
+    4 p Cin + r of staged row dy, 0 where that is past the row's span."""
+    k4 = 4 * cin
+    idx = torch.arange(STEM_TILE)[:, None] * k4 + torch.arange(k4)[None, :]
+    return torch.cat([torch.where(idx < lens[dy], rows[dy][idx], torch.zeros((), dtype=rows.dtype))
+                      for dy in range(4)], dim=1)
+
+
+def tf32(v):
+    """cvt.rna.tf32.f32: 10 mantissa bits, ties away from zero."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def emulate_stem(x, k, b, ns, nb):
+    """The kernel's tile order -> (out, the A tile of every pixel)."""
+    n, h, w, cin = x.shape
+    cout = k.shape[3]
+    ho, wo = -(-h // 4), -(-w // 4)
+    npad = -(-cout // 8) * 8
+    wmat = torch.zeros(16 * cin, npad)
+    wmat[:, :cout] = k.float().reshape(16 * cin, cout)
+    bias = torch.zeros(npad)
+    bias[:cout] = b.float()
+    a_all = torch.zeros(n, ho, wo, 16 * cin, dtype=x.dtype)
+    out = torch.zeros(n, ho, wo, cout, dtype=x.dtype)
+    for tile in range(n * ho * -(-wo // STEM_TILE)):  # the grid stride visits every tile once
+        row, tx = divmod(tile, -(-wo // STEM_TILE))
+        img, oy = divmod(row, ho)
+        ox0 = tx * STEM_TILE
+        a = stem_a_tile(*stem_staged_rows(x, img, oy, ox0), cin)
+        live = min(STEM_TILE, wo - ox0)
+        a_all[img, oy, ox0:ox0 + live] = a[:live]
+        a = a.to(k.dtype).float()  # rounded to the weight dtype on the way into the fragments
+        acc = bias.expand(STEM_TILE, npad).clone()
+        if k.dtype == torch.bfloat16:  # m16n8k16: k steps of 16
+            for ks in range(cin):
+                sl = slice(16 * ks, 16 * ks + 16)
+                acc = acc + a[:, sl] @ wmat[sl]
+        else:  # m16n8k8 three-pass TF32, each step's products in a fresh sum
+            for ks in range(2 * cin):
+                sl = slice(8 * ks, 8 * ks + 8)
+                ahi, bhi = tf32(a[:, sl]), tf32(wmat[sl])
+                alo, blo = tf32(a[:, sl] - ahi), tf32(wmat[sl] - bhi)
+                step = alo @ bhi
+                step = step + ahi @ blo
+                step = step + ahi @ bhi
+                acc = acc + step
+        assert torch.equal(acc[:, cout:], torch.zeros(STEM_TILE, npad - cout))  # zero-padded N
+        y = acc[:, :cout]  # the LN's statistics over the true Cout only
+        mean = y.sum(dim=-1, keepdim=True) / cout
+        var = (y - mean).square().sum(dim=-1, keepdim=True) / cout
+        o = (y - mean) * (1.0 / torch.sqrt(var + STEM_EPS)) * ns + nb
+        out[img, oy, ox0:ox0 + live] = o[:live].to(x.dtype)
+    return out, a_all
+
+
+# odd H and W; (1, 5, 270, 3): two tiles per output row, the last ragged (4 of 64)
+@pytest.mark.parametrize("shape", [(1, 9, 13, 1), (2, 7, 11, 3), (1, 5, 270, 3)])
+@pytest.mark.parametrize("cout", [8, 20, 96])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_stem_tile_order_is_patchify(shape, cout, w_dtype):
+    rng = np.random.default_rng(13)
+    cin = shape[-1]
+    x = rng.standard_normal(shape).astype(np.float32)
+    k = (rng.standard_normal((4, 4, cin, cout)) * (16 * cin) ** -0.5).astype(np.float32)
+    b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    ns = (1 + 0.1 * rng.standard_normal(cout)).astype(np.float32)
+    nb = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    xt, kt, bt = torch.from_numpy(x), torch.from_numpy(k).to(w_dtype), torch.from_numpy(b).to(w_dtype)
+    nst, nbt = torch.from_numpy(ns), torch.from_numpy(nb)
+    out, a = emulate_stem(xt, kt, bt, nst, nbt)
+    assert torch.equal(a, patchify(xt, 4))
+    ref = plain_stem(xt, kt, bt, nst, nbt)
+    assert (out - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+    if w_dtype == torch.float32:  # and the JAX lax stem on the same inputs
+        lax = np.asarray(_lax_stem(*map(jnp.asarray, (x, k, b, ns, nb))))
+        np.testing.assert_allclose(out.numpy(), lax, rtol=1e-5, atol=1e-5)
