@@ -24,14 +24,21 @@ same run on the CPU.  Phase 15 holds every speed knob of the tower to the
 product gates of the JAX package (``tests/test_fastpath_parity.py``): one
 checkpoint trained on plain-path features, evaluated on a feature store
 encoded through the kernels per knob, zero-shot AUC within 0.005 of the
-baseline's and the generated reports byte-identical.
+baseline's and the generated reports byte-identical.  Phase 16 closes the
+main path over the trained run, the tower in the feature-store preset:
+``generate_report.main`` for one full-field image and one four-view exam
+(Paeth-filtered PNGs through the compiled unfilter), equal to the serving
+engine's decisions and reports; ``evaluate_cnn`` against its CPU run; and
+the unix-socket server answering 36 concurrent clients as ``handle`` does.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks what comes out, and times every kernel beside its plain
 version, its bound and (where one exists) the one PyTorch call that computes
-the same function, plus the encode programs, ``extract()``, PNG decode, the
-global loss, the text bank, the train step and ``test()``.  The times phase
-keeps its number, 11, and runs after phases 12-15.
+the same function, plus the encode programs, ``extract()`` (split into
+decode, device and write seconds), PNG decode (compiled and plain unfilter),
+the global loss, the text bank, the train step, ``test()``, ``generate_report``
+and the socket server's ms per request.  The times phase keeps its number,
+11, and runs after phases 12-16.
 
 Imports nothing of JAX or of ``mmgclip_tpu``.  Exits non-zero, without the
 result line, when CUDA is unavailable or any phase fails.  The last line is
@@ -45,6 +52,7 @@ import base64
 import dataclasses
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -821,7 +829,7 @@ def timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts):
 
 
 def timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_towers, dw_pixels,
-                    tree):
+                    tree, smi):
     """Encode-program img/s of each new config (CUDA events), extract() img/s
     (host clock) and the Paeth PNG decode (host clock)."""
     from mmgclip_tpu_torch.ingest.encode import host_prepool
@@ -860,7 +868,8 @@ def timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_
         out[f"{label}, {size}"] = ms
         log(f"    encode program {label}, {size}: {ms:.2f} ms = {1e3 * n / ms:.2f} img/s")
 
-    # extract() end to end on the host clock, a second time into a fresh dir
+    # extract() end to end on the host clock, a second time into a fresh dir,
+    # with its decode / device / write split (host clock, _Encoder.timings)
     from mmgclip_tpu_torch.ingest.encode import ImageFeatureExtractor
 
     ex = ImageFeatureExtractor(config=store_ex.config, dataset=store_ex.dataset, device=device)
@@ -872,26 +881,59 @@ def timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_
     n = ex.extract()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    out["extract"] = seconds
+    out["extract"], out["extract_split"] = seconds, dict(ex.timings)
+    split = ex.timings
     log(f"    extract() of {n} full-field PNGs (int8 preset), second run: {seconds:.3f} s = "
-        f"{n / seconds:.2f} img/s (host clock, decode and writes included)")
+        f"{n / seconds:.2f} img/s (host clock, decode and writes included; {smi}); decode "
+        f"{split['decode_s']:.3f} s summed over {ex.decode_threads} threads, of which the main "
+        f"thread waited {split['decode_wait_s']:.3f} s; device (assembly, copies, launches, "
+        f"read-backs) {split['device_s']:.3f} s; .npy writes {split['write_s']:.3f} s")
 
-    # the Average/Paeth unfilter is a Python loop: time one full-field file
+    # one full-field file with every row Paeth-filtered: the compiled unfilter
+    # against the plain numpy / Python one (the unfilter swapped in the reader)
+    from mmgclip_tpu_torch.ingest import png_reader
+
     png = os.path.join(os.path.dirname(store_ex.export_dir), "paeth.png")
     pixels = synthetic_mammogram(*FFDM_SHAPES[0], seed=41)
     write_png16(png, pixels, paeth=True)
-    t0 = time.perf_counter()
-    decoded = decode_png(png)
-    paeth_s = time.perf_counter() - t0
+
+    def decode_s(path, repeats):
+        best = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            decoded = decode_png(path)
+            best = min(best, time.perf_counter() - t0)
+        return best, decoded
+
+    paeth_s, decoded = decode_s(png, 5)
     if not np.array_equal(decoded, pixels):
         raise AssertionError("Paeth-filtered PNG decoded wrong")
-    t0 = time.perf_counter()
-    decode_png(tree[3][0])
-    plain_s = time.perf_counter() - t0
-    out["paeth_decode_s"], out["unfiltered_decode_s"] = paeth_s, plain_s
-    log(f"    decode_png {h}x{w} 16-bit: every row Paeth {paeth_s:.2f} s, unfiltered {plain_s:.3f} s "
-        f"(host clock)")
+    plain_s, _ = decode_s(tree[3][0], 5)
+    compiled = png_reader.unfilter
+    png_reader.unfilter = lambda data, h, stride, bpp: png_reader._unfilter(memoryview(data), h, stride, bpp)
+    try:
+        paeth_plain_s, decoded = decode_s(png, 1)
+    finally:
+        png_reader.unfilter = compiled
+    if not np.array_equal(decoded, pixels):
+        raise AssertionError("Paeth-filtered PNG decoded wrong by the plain unfilter")
+    out.update(paeth_decode_s=paeth_s, paeth_plain_decode_s=paeth_plain_s, unfiltered_decode_s=plain_s)
+    log(f"    decode_png {h}x{w} 16-bit (host clock, best of 5; {smi}): every row Paeth {paeth_s:.4f} s "
+        f"compiled unfilter, {paeth_plain_s:.2f} s plain unfilter (one call); unfiltered {plain_s:.4f} s")
     return out
+
+
+def timing_reports(device, report, smi):
+    """``generate_report`` for one image and one four-view exam, run again
+    after phase 16 (host clock, model load included) beside phase 16's first
+    runs, and the socket server's ms per request."""
+    for label, flag, value in (("image", "--image_id", REPORT_IMAGE), ("exam", "--exam_id", REPORT_EXAM)):
+        *_, seconds = run_generate_report(device, report["report_dir"], flag, value)
+        log(f"    generate_report {flag} {value}: {seconds:.3f} s, first run {report['times'][label]:.3f} s "
+            f"(host clock, model load included; {smi})")
+    for op, (median, p90) in report["times"]["serve_ms"].items():
+        log(f"    serve_socket {op}: {median:.2f} ms median, {p90:.2f} ms p90 per request "
+            f"(host clock, 36 concurrent clients; {smi})")
 
 
 # ----------------------------------------------------------------------
@@ -1158,7 +1200,7 @@ def phase_training(device, tmp, smi):
         f"(tol {TRAIN_LOSS_REL_TOL:.0e})")
     if not (np.isfinite(rel).all() and rel.max() <= TRAIN_LOSS_REL_TOL):
         raise AssertionError(f"card vs CPU training losses differ by {rel}")
-    return times
+    return times, run_dir, tree
 
 
 # ----------------------------------------------------------------------
@@ -1362,6 +1404,227 @@ def phase_product_gates(device, tmp):
     if failures:
         raise AssertionError("product gates failed: " + "; ".join(failures))
     return aucs
+
+# ----------------------------------------------------------------------
+# phase 16: generate_report, evaluate_cnn and the socket server over the trained run
+REPORT_TOWER = {"dtype": "bfloat16", "use_fused_blocks": True, "gelu": "tanh", "quant": "int8",
+                "fuse_stem": True, "fuse_downsample": True}  # the feature-store preset of phase 8
+REPORT_IMAGE = "p0200000002cl"
+REPORT_EXAM = "0210000002"  # patient 02100000, study 02: four views
+PER_VIEW_LAUNCHES = {"fused_stem": 1, "fused_ln_downsample": 3, "fused_convnext_block_int8": 18}
+SERVE_PROB_TOL = 1e-5         # a merged classify against the same request alone
+
+
+def report_run(tmp, run_dir, shapes, tower):
+    """A run dir with ``run_dir``'s checkpoint whose snapshot encodes through
+    the ``tower`` knobs, with a seeded tower (layer scale 0.1) written to flax
+    bytes, over a tree of Paeth-filtered 16-bit PNGs: the image of
+    ``REPORT_IMAGE`` (``shapes[0]``) and the four views of ``REPORT_EXAM``
+    (two of each shape).  -> (run dir, image path, exam view paths)."""
+    from mmgclip_tpu_torch.config import Config, recompose, save_snapshot
+    from mmgclip_tpu_torch.data.paths import create_exam_path, create_path
+    from mmgclip_tpu_torch.ingest.encode import load_convnext_tower
+    from mmgclip_tpu_torch.utils.flax_msgpack import to_bytes
+    from mmgclip_tpu_torch.weights import module_tree
+
+    base = os.path.join(tmp, "report_tree")
+    image = create_path(REPORT_IMAGE, base)
+    exam = create_exam_path(REPORT_EXAM, base)
+    views = [os.path.join(exam, f"p{REPORT_EXAM}{view}.png") for view in VIEWS]
+    for i, (path, shape) in enumerate(zip([image, *views], [shapes[0], *shapes, *shapes])):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_png16(path, synthetic_mammogram(*shape, seed=60 + i), paeth=True)
+
+    cfg = recompose(run_dir)
+    cfg.networks.image_encoder.config = Config(tower)
+    module, _cn = load_convnext_tower(cfg)
+    set_layer_scale(module, 0.1)
+    weights = os.path.join(tmp, "report_convnext.npz")
+    with open(weights, "wb") as fh:
+        fh.write(to_bytes({"params": module_tree(module)}))
+    report_dir = os.path.join(tmp, "report_run")
+    cfg.networks.image_encoder.convnext_tiny_clf_path = weights
+    cfg.dataset.config.base_dataset_path = base
+    cfg.dataset.config.concatenate_features_method = "avgpool"
+    cfg.checkpoints.checkpoints_export_dir = os.path.join(report_dir, "checkpoints")
+    save_snapshot(cfg, report_dir)
+    shutil.copytree(os.path.join(run_dir, "checkpoints"), cfg.checkpoints.checkpoints_export_dir)
+    return report_dir, image, views
+
+
+def run_generate_report(device, report_dir, flag, value):
+    """``generate_report.main`` as a user calls it -> (decisions, text, seconds)."""
+    from mmgclip_tpu_torch import generate_report
+
+    argv = ["--experiment_path", report_dir, flag, value]
+    if device.type != "cuda":
+        argv += ["--device", str(device)]
+    t0 = time.perf_counter()
+    decisions, text = generate_report.main(argv)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return decisions, text, time.perf_counter() - t0
+
+
+def phase_report_paths(device, tmp, run_dir, train_tree, shapes=FFDM_SHAPES, tower=REPORT_TOWER):
+    """Main-path step 4 and the rest of the entry points over a trained run:
+    ``generate_report`` for one image and for one four-view exam, each equal
+    (decisions and text) to ``InferenceEngine.cascade_decisions`` +
+    ``generate_reports`` on ``encode_paths`` / the fused exam of the same
+    config; ``evaluate_cnn`` over the run's stored features, its table equal
+    to the CPU's within 1e-5; the unix-socket server answering 32 concurrent
+    inline ``classify`` and 4 path ``report`` requests as ``handle`` does.
+    Launches: the tower's per view (``PER_VIEW_LAUNCHES``) on the card.
+    Runs on the CPU too (every knob then takes the plain versions).
+    -> {"report_dir", "image", "views", "times"}."""
+    import asyncio
+    import threading
+
+    from mmgclip_tpu_torch import evaluate_cnn
+    from mmgclip_tpu_torch.config import compose
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.ops.fusion import fuse_views
+    from mmgclip_tpu_torch.serve import handle, serve_socket
+    from mmgclip_tpu_torch.serving import InferenceEngine
+
+    on_card = device.type == "cuda"
+    per_view = PER_VIEW_LAUNCHES if on_card else {}
+    report_dir, image, views = report_run(tmp, run_dir, shapes, tower)
+    times, got = {}, {}
+    for label, flag, value, n_views in (("image", "--image_id", REPORT_IMAGE, 1),
+                                        ("exam", "--exam_id", REPORT_EXAM, len(views))):
+        reset_launch_counts()
+        decisions, text, times[label] = run_generate_report(device, report_dir, flag, value)
+        check_counts(f"generate_report {flag} {value} ({n_views} view(s))", launch_counts(),
+                     {k: v * n_views for k, v in per_view.items()})
+        got[label] = (decisions, text)
+        log(f"    generate_report {flag} {value}: {times[label]:.2f} s (host clock, model load "
+            f"included); {json.dumps(decisions)}; {text[:80]}...")
+
+    engine = InferenceEngine.from_experiment(report_dir, device=device)
+    seed = int(engine.config.base.seed)
+    exam = np.concatenate([engine.encode_paths([v]) for v in views])  # one view a call, as the entry point
+    fused = fuse_views(torch.from_numpy(exam).to(device).to(engine.cn_config.dtype), "avgpool")
+    for label, feats in (("image", engine.encode_paths([image])),
+                         ("exam", fused.float().cpu().numpy()[None])):
+        library = (engine.cascade_decisions(feats)[0],
+                   engine.generate_reports(feats, seed=seed, bug_compat=True)[0])
+        if library != got[label]:
+            raise AssertionError(f"generate_report ({label}) {got[label]} != the engine's {library}")
+    log("    decisions and report text equal to InferenceEngine.cascade_decisions + "
+        "generate_reports on encode_paths (image) and on the fused views (exam)")
+
+    # evaluate_cnn over the trained run's stored features, card against CPU
+    base, annotated, lists, features = train_tree
+    cnn_dir = os.path.join(tmp, "cnn_run")
+    cnn_cfg = compose(os.path.join(REPO, "configs"), "evaluate_cnn_clf", [
+        f"dataset.config.base_dataset_path={base}", f"dataset.config.annotated_dataset_path={annotated}",
+        f"dataset.config.lists_dataset_path={lists}", f"base.features_export_dir={features}",
+        "dataloader.test.batch_size=8", f"hydra.run.dir={cnn_dir}"], run_dir=cnn_dir)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    table = evaluate_cnn.run(cnn_cfg, device=device)
+    times["evaluate_cnn"] = time.perf_counter() - t0
+    check_counts("evaluate_cnn (the classifier head on stored features)", launch_counts(), {})
+    cpu_rows = evaluate_cnn.run(cnn_cfg, device="cpu").rows
+    for (name, auroc), (cpu_name, cpu_auroc) in zip(table.rows, cpu_rows):
+        if name != cpu_name or not (abs(auroc - cpu_auroc) <= 1e-5
+                                    or (np.isnan(auroc) and np.isnan(cpu_auroc))):
+            raise AssertionError(f"evaluate_cnn rows {table.rows} vs CPU {cpu_rows}")
+    if len(table.rows) != len(cpu_rows) or not table.rows:
+        raise AssertionError(f"evaluate_cnn rows {table.rows} vs CPU {cpu_rows}")
+    log(f"    evaluate_cnn: {table.rows} in {times['evaluate_cnn']:.2f} s (host clock), "
+        f"equal to --device cpu within 1e-5")
+
+    # the unix-socket server: 32 concurrent inline classify, 4 report by path
+    stored = sorted(os.path.join(r, f) for r, _d, fs in os.walk(features) for f in fs if f.endswith(".npy"))
+    rows = np.stack([np.load(path).reshape(-1) for path in stored[:32]]).astype("<f4")
+    prompts = ["Finding suggesting benign.", "Finding suggesting malignant."]
+    requests = [{"op": "classify", "id": i, "class_list": prompts,
+                 "features_b64": base64.b64encode(row.tobytes()).decode()} for i, row in enumerate(rows)]
+    requests += [{"op": "report", "id": 32 + i, "paths": [path], "seed": 7}
+                 for i, path in enumerate([image, *views[:3]])]
+    calls = []
+    classify = engine.classify
+
+    def counted_classify(features, class_list):
+        calls.append(np.asarray(features).shape[0])
+        return classify(features, class_list)
+
+    sock = f"\0mmgclip-smoke-{os.getpid()}"  # abstract: no path-length limit, no file
+    loop, ready, tasks = asyncio.new_event_loop(), threading.Event(), []
+
+    def run_server():
+        tasks.append(loop.create_task(serve_socket(engine, unix_path=sock, ready_event=ready)))
+        try:
+            loop.run_until_complete(tasks[0])
+        except asyncio.CancelledError:
+            pass
+        finally:
+            loop.close()
+
+    responses, latency = {}, {}
+
+    def client(request):
+        import socket
+
+        conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        conn.settimeout(300)
+        with conn:
+            conn.connect(sock)
+            t0 = time.perf_counter()
+            conn.sendall((json.dumps(request) + "\n").encode())
+            line = conn.makefile().readline()
+            latency[request["id"]] = (time.perf_counter() - t0) * 1e3
+        responses[request["id"]] = json.loads(line)
+
+    engine.classify = counted_classify
+    server = threading.Thread(target=run_server, name="serve-socket")
+    server.start()
+    try:
+        if not ready.wait(60):
+            raise AssertionError("the socket server did not start")
+        reset_launch_counts()
+        clients = [threading.Thread(target=client, args=(r,)) for r in requests]
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(300)
+        times["serve_s"] = time.perf_counter() - t0
+        served_counts = launch_counts()
+    finally:
+        loop.call_soon_threadsafe(tasks[0].cancel)
+        server.join(60)
+        del engine.classify
+    if server.is_alive() or any(t.is_alive() for t in clients):
+        raise AssertionError("the socket server or a client did not finish")
+    check_counts("serve_socket (4 report requests by path)", served_counts,
+                 {k: v * 4 for k, v in per_view.items()})
+    for request in requests:
+        response = responses.get(request["id"], {})
+        expected = handle(engine, request)
+        if "result" not in response:
+            raise AssertionError(f"socket request {request['id']}: {response}")
+        result = response["result"]
+        if request["op"] == "report":
+            same = result == expected
+        else:
+            same = (result["similarities_argmax"] == expected["similarities_argmax"]
+                    and result["class_list"] == expected["class_list"]
+                    and np.abs(np.subtract(result["classes_similarities"],
+                                           expected["classes_similarities"])).max() <= SERVE_PROB_TOL)
+        if not same:
+            raise AssertionError(f"socket request {request['id']}: {result} != handle's {expected}")
+    engine.close()
+    ms = {op: [latency[r["id"]] for r in requests if r["op"] == op] for op in ("classify", "report")}
+    times["serve_ms"] = {op: (float(np.median(v)), float(np.percentile(v, 90))) for op, v in ms.items()}
+    log(f"    serve_socket (unix): 32 concurrent classify answered in {len(calls)} engine.classify "
+        f"call(s) (rows {calls}); every response equal to handle's (probabilities within "
+        f"{SERVE_PROB_TOL:.0e}, reports exact); ms per request median / p90 (host clock, client "
+        f"side): " + ", ".join(f"{op} {m:.2f} / {p:.2f}" for op, (m, p) in times["serve_ms"].items())
+        + f"; all {len(requests)} in {times['serve_s']:.2f} s")
+    return {"report_dir": report_dir, "image": image, "views": views, "times": times}
 
 
 def timing_ring(device, peaks, smi, launches, max_err):
@@ -1625,20 +1888,26 @@ def main() -> int:
 
         # 14. training and test() ------------------------------------------------------
         log("[14] training: mmgclip_tpu_torch.train.run (train_binary_class_clf), then test()")
-        phase_training(device, tmp.name, smi)
+        _train_times, train_run, train_tree = phase_training(device, tmp.name, smi)
 
         # 15. the product gates -------------------------------------------------------
         log("[15] product gates: one checkpoint, a feature store per speed knob of the tower")
         phase_product_gates(device, tmp.name)
 
-        # 11. times (after 12-15) --------------------------------------------------------
+        # 16. main-path step 4 and the other entry points ------------------------------------
+        log("[16] generate_report (one image, one four-view exam), evaluate_cnn and the unix-socket "
+            "server over the trained run, the tower in the feature-store preset")
+        report = phase_report_paths(device, tmp.name, train_run, train_tree)
+
+        # 11. times (after 12-16) --------------------------------------------------------
         log("[11] times (CUDA events, median of 10 after 3 warmup unless stated)")
         kernels = timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts,
                                block_err, flash_err)
         kernels += timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts)
         kernels.append(timing_ring(device, peaks, smi, ring_launches, ring_err))
         timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_towers,
-                        dw_pixels, tree)
+                        dw_pixels, tree, smi)
+        timing_reports(device, report, smi)
         enc_times = {}
         with torch.inference_mode():
             for label, shape, n in (("1024x832 bucket of 2", (1024, 832), 2),

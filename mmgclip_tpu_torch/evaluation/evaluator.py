@@ -10,13 +10,15 @@ configured evaluation methods per enum class —
                        per-class + interpolated-mean ROC, 1000x bootstrap 95%
                        CI for binary tasks (reference: evaluator.py:321-478);
 * ``confustion_matrix`` (sic — key kept for config parity): all prompts at
-                       once, confusion matrix (reference: :147-256).
+                       once, confusion matrix (reference: :147-256);
+
+and, built with ``cnn_eval=True`` (no model, no text tower),
+``evaluate_cnn``: the supervised ConvNeXt classifier head over stored pooled
+features, one-vs-all ROC per class (reference: evaluator.py:657-729).
 
 The metrics are the JAX package's numpy code on the same numpy RNG.  Plots
 need matplotlib; where it does not import, each plot is skipped with a
-warning, as in the JAX package.  ``evaluate_cnn`` and its ``cnn_eval`` path
-are not ported yet (ROADMAP.md, queue 1 item 4); the ConvNeXt classifier
-head they need is (``models/convnext.py``).
+warning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def _scrub(obj):
 
 class Evaluator:
     def __init__(self, config, test_dataloader=None, tokenizer=None, model: Optional[MMGCLIP] = None,
-                 device=None):
+                 device=None, cnn_eval: bool = False):
         logger.info("Running evaluator on test split.")
         self.config = config
         if test_dataloader is None:
@@ -79,7 +81,11 @@ class Evaluator:
         self.test_dataloader = test_dataloader
         self.tokenizer = tokenizer
 
-        if model is not None:
+        if cnn_eval:
+            logger.info("Evaluating CNN, use evaluate_cnn method.")
+            self.model = None
+            self.device = resolve_device(device)
+        elif model is not None:
             logger.info("Using trained model instance...")
             self.model = model
             self.device = model.device
@@ -283,6 +289,39 @@ class Evaluator:
             plt.close(fig)
         except Exception as exc:
             logger.warning(f"CI plot failed: {exc}")
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def evaluate_cnn(self, classifier_fn) -> Table:
+        """Supervised ConvNeXt-classifier baseline on stored features
+        (reference: evaluator.py:657-729).  ``classifier_fn``: pooled
+        [n, d] features on the device -> [n, n_classes] logits; the
+        posteriors are ``softmax(logits / 2)``."""
+        label_names: List[str] = []
+        posteriors = []
+        for batch in self.test_dataloader:
+            label_names.extend(batch["image_description"])
+            feats = np.asarray(batch["image_features"], np.float32)
+            feats = torch.as_tensor(feats.reshape(feats.shape[0], -1), device=self.device)
+            logits = classifier_fn(feats).float().cpu().numpy()
+            posteriors.append(M.softmax(logits / 2, axis=-1))
+        sims = np.concatenate(posteriors, axis=0)
+
+        enum_name = self.config.dataset.eval.enum_classes[0]
+        classes_dict = {label.name: label.value for label in get_enum_class(enum_name)}
+        results = Table(["Class", "AUROC"])
+        curves = []
+        for idx, class_name in enumerate(classes_dict.keys()):
+            y_true = np.array([1 if class_name in label else 0 for label in label_names])
+            if y_true.min() == y_true.max():
+                results.add_row([class_name, float("nan")])
+                continue
+            fpr, tpr, _ = M.roc_curve(y_true, sims[:, idx])
+            roc = M.auc(fpr, tpr)
+            results.add_row([class_name, roc])
+            curves.append((class_name, fpr, tpr, roc))
+        self._plot_roc(curves, f"cnn_{enum_name}_ova", subdir="ova")
+        return results
 
     # ------------------------------------------------------------------
     def evaluate_experiment(self) -> List:

@@ -112,3 +112,26 @@ def unpack_decisions(packed: int) -> Dict[str, int]:
         out[name] = packed % 8
         packed //= 8
     return out
+
+
+def decide(model, tokenizer, image_features) -> Dict[str, int]:
+    """Features ([d] or [1, d]) -> dict of decision indices: the image tower
+    head, the projection, L2 norm, then :func:`run_cascade`.
+
+    The prompt table depends only on the model's parameters and the
+    tokenizer; it is cached on the model, keyed on both by identity (each
+    parameter tensor with its version counter, so an in-place update is a
+    new key), so repeated calls never re-run the frozen text tower."""
+    with torch.inference_mode():
+        feats = torch.as_tensor(image_features, dtype=torch.float32, device=model.device)
+        if feats.dim() == 1:
+            feats = feats[None, :]
+        emb = l2_normalize(model.project_image(model.apply_image_tower(feats)))[0]
+        params = [(p, p._version) for p in model.parameters()]
+        cached = getattr(model, "_cascade_table_cache", None)
+        if (cached is None or cached[1] is not tokenizer or len(cached[0]) != len(params)
+                or any(a is not b or va != vb for (a, va), (b, vb) in zip(cached[0], params))):
+            table, mask = build_prompt_table(model, tokenizer)
+            model._cascade_table_cache = (params, tokenizer, table, mask)
+        _, _, table, mask = model._cascade_table_cache
+        return unpack_decisions(run_cascade(emb, table, mask).item())  # one scalar read

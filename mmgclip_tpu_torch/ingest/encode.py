@@ -17,7 +17,11 @@ surface (port of mmgclip_tpu/ingest/encode.py).
   ``encode_bucket_rounding``, through the masked tower), and keeps two
   batches in flight on the device: each batch is copied from pinned memory
   without blocking and read back only after the next one is queued.  Files
-  that fail to decode are skipped and logged to ``failed.txt``.
+  that fail to decode are skipped and logged to ``failed.txt``.  Each run
+  leaves its host-clock split in ``_Encoder.timings``: decode seconds summed
+  over the decode threads and the part the main thread waited for them, the
+  device seconds (batch assembly, host prepool sums, copies, launches and
+  read-backs) and the seconds of the result callbacks (the ``.npy`` writes).
 * ``ImageFeatureExtractor`` writes one ``[1, 768, 1, 1]`` ``.npy`` per image
   mirroring the source tree; ``StudyFeatureExtractor`` one fused vector per
   study.
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import defaultdict, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -277,6 +282,8 @@ class _Encoder:
         self.module, self.cn_config = load_convnext_tower(config, device=self.device)
         self._prepool_warned: set = set()  # one k-vs-scale warning per shape
         self._failed_lock = threading.Lock()
+        self._decode_seconds: List[float] = []  # appended by the decode threads
+        self.timings: Dict[str, float] = {}
 
     def _encode_fn(self):
         return build_encode_program(self.module, self.cn_config.in_channels, window=self.window)
@@ -326,14 +333,22 @@ class _Encoder:
             encode = self._encode_fn()
         buckets: Dict[Tuple, List[Tuple[str, np.ndarray]]] = defaultdict(list)
         pending: deque = deque()  # (chunk, device result, host buffer)
+        clock = time.perf_counter
+        self._decode_seconds = []
+        split = {"decode_wait_s": 0.0, "device_s": 0.0, "write_s": 0.0}
 
         def drain_one():
+            t0 = clock()
             chunk, result, _host = pending.popleft()
             feats = result.float().cpu().numpy()
+            t1 = clock()
             for (key, _px), vec in zip(chunk, feats):
                 on_result(key, vec)
+            split["device_s"] += t1 - t0
+            split["write_s"] += clock() - t1
 
         def submit(chunk, shape):
+            t0 = clock()
             if rounding:
                 canvas = np.zeros((len(chunk), *shape[:2]), chunk[0][1].dtype)
                 for i, (_k, arr) in enumerate(chunk):
@@ -355,6 +370,7 @@ class _Encoder:
                     pixels, host = self._to_device(stack)
                     result = encode(pixels)
             pending.append((chunk, result, host))
+            split["device_s"] += clock() - t0
             while len(pending) > 2:
                 drain_one()  # read back older batches while this one runs
 
@@ -387,7 +403,9 @@ class _Encoder:
             refill()
             while inflight:
                 (_src, key), future = inflight.popleft()
+                t0 = clock()
                 pixels = future.result()
+                split["decode_wait_s"] += clock() - t0
                 refill()  # keep the decode window full while we consume
                 if pixels is None:
                     continue
@@ -399,16 +417,20 @@ class _Encoder:
             flush(shape)
         while pending:
             drain_one()
+        self.timings = {"decode_s": sum(self._decode_seconds), **split}
 
     def _safe_decode(self, path: str, failed_path: str) -> Optional[np.ndarray]:
         """Decode, or log the failure to ``failed_path`` and return None (the
         reference's skip-and-log contract)."""
+        t0 = time.perf_counter()
         try:
             return decode_png(path)
         except Exception as exc:  # any unreadable file is skipped, not fatal
             with self._failed_lock, open(failed_path, "a") as fh:
                 fh.write(path + "\n" + str(exc) + "\n\n")
             return None
+        finally:
+            self._decode_seconds.append(time.perf_counter() - t0)  # list.append is atomic
 
 
 def _rows_with(dataset, column: str) -> List[Mapping]:

@@ -1,4 +1,4 @@
-"""PNG decoding on the standard library's ``zlib`` and numpy.
+"""PNG decoding on the standard library's ``zlib``, numpy and a compiled unfilter.
 
 Port of mmgclip_tpu/ingest/png_reader.py without its native libpng shim and
 PIL fallback, neither of which the card's machine has.  It returns what the
@@ -14,17 +14,23 @@ interlace method of the PNG standard:
 * alpha (from the colour type or a tRNS chunk) is dropped;
 * Adam7 interlacing is undone.
 
-Rows filtered with Sub and Up are undone with numpy; Average and Paeth rows
-carry a left-neighbour dependency and run as a Python loop over the row,
-which is slow on full-field mammograms that use them (ROADMAP.md).
+Inflate is the standard library's ``zlib``.  The row filters are undone by a
+compiled C function (``csrc/png_unfilter.c``, built by ``cc`` into
+``mmgclip_tpu_torch/_build/`` at first use and called through ctypes, which
+releases the GIL, so decode threads run in parallel).  A missing compiler or
+a failed build raises.  ``_unfilter`` is the plain numpy / Python version the
+tests hold it against; no decode path uses it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
+
+from ..ops import _build
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
@@ -35,6 +41,8 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 # libpng's rgb_to_gray coefficients out of 32768 for (29900, 58700) / 100000
 _RC, _GC = 29900 * 32768 // 100000, 58700 * 32768 // 100000
 _BC = 32768 - _RC - _GC
+_SOURCE = "png_unfilter.c"
+_SIGNATURES = {"mmg_png_unfilter": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]}
 
 
 def _chunks(data: bytes):
@@ -73,7 +81,8 @@ def _unfilter_loop(kind: int, cur: bytearray, prev: bytes, bpp: int) -> None:
 
 
 def _unfilter(raw: memoryview, height: int, stride: int, bpp: int) -> np.ndarray:
-    """Filtered scanlines (a filter byte + ``stride`` bytes each) -> [height, stride]."""
+    """Filtered scanlines (a filter byte + ``stride`` bytes each) -> [height, stride]
+    (the plain version of ``unfilter``)."""
     if len(raw) < height * (stride + 1):
         raise ValueError("PNG image data is shorter than its header says")
     rows = np.frombuffer(raw, np.uint8, count=height * (stride + 1)).reshape(height, stride + 1)
@@ -99,6 +108,23 @@ def _unfilter(raw: memoryview, height: int, stride: int, bpp: int) -> np.ndarray
     return out
 
 
+def unfilter(data: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
+    """The compiled unfilter: filtered scanlines at the start of the writable
+    uint8 array ``data`` (a filter byte + ``stride`` bytes each) are undone in
+    place -> a [height, stride] view of the raw bytes."""
+    if data.dtype != np.uint8 or data.ndim != 1 or not data.flags.writeable \
+            or not data.flags.c_contiguous:
+        raise ValueError("unfilter needs a writable contiguous 1-D uint8 array")
+    if data.size < height * (stride + 1):
+        raise ValueError("PNG image data is shorter than its header says")
+    rows = data[:height * (stride + 1)].reshape(height, stride + 1)
+    lib = _build.load_typed(_SOURCE, _SIGNATURES)
+    bad = lib.mmg_png_unfilter(height, stride, bpp, rows.ctypes.data)
+    if bad:
+        raise ValueError(f"unknown PNG row filter {int(rows[bad - 1, 0])}")
+    return rows[:, 1:]
+
+
 def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
     """Unfiltered rows -> [h, width, channels] samples (uint16 at 16 bits,
     uint8 otherwise; sub-byte samples unpacked MSB first, not yet scaled)."""
@@ -113,13 +139,15 @@ def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndar
     return unpacked.reshape(h, rows.shape[1] * per_byte)[:, :width].reshape(h, width, 1)
 
 
-def _decode_samples(data: bytes, width: int, height: int, channels: int, depth: int,
+def _decode_samples(data: np.ndarray, width: int, height: int, channels: int, depth: int,
                     interlace: int) -> np.ndarray:
+    """Inflated image data (a writable uint8 array, unfiltered in place) ->
+    [height, width, channels] samples."""
     bits = channels * depth
     bpp = max(1, bits // 8)
     if interlace == 0:
         stride = (width * bits + 7) // 8
-        return _samples(_unfilter(memoryview(data), height, stride, bpp), width, channels, depth)
+        return _samples(unfilter(data, height, stride, bpp), width, channels, depth)
     out = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
     pos = 0
     for x0, y0, dx, dy in _ADAM7:
@@ -128,7 +156,7 @@ def _decode_samples(data: bytes, width: int, height: int, channels: int, depth: 
         if pw == 0 or ph == 0:
             continue  # an empty pass has no scanlines at all
         stride = (pw * bits + 7) // 8
-        rows = _unfilter(memoryview(data)[pos:], ph, stride, bpp)
+        rows = unfilter(data[pos:], ph, stride, bpp)
         pos += ph * (stride + 1)
         out[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
     return out
@@ -164,8 +192,8 @@ def decode_png(path: str) -> np.ndarray:
     if color not in _CHANNELS or depth not in _DEPTHS[color] or interlace not in (0, 1):
         raise ValueError(f"{path!r}: invalid PNG header (colour type {color}, bit depth "
                          f"{depth}, interlace {interlace})")
-    samples = _decode_samples(zlib.decompress(b"".join(idat)), width, height,
-                              _CHANNELS[color], depth, interlace)
+    data = np.frombuffer(bytearray(zlib.decompress(b"".join(idat))), np.uint8)
+    samples = _decode_samples(data, width, height, _CHANNELS[color], depth, interlace)
     if color == 3:
         if palette is None:
             raise ValueError(f"{path!r}: palette image without a PLTE chunk")

@@ -1,11 +1,13 @@
-"""Build the port's CUDA sources and load them through ctypes.
+"""Build the port's CUDA and host C sources and load them through ctypes.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` straight into its own shared
 library with a plain C interface (no PyTorch headers, so no ninja and a build
 of seconds), keyed on a hash of the source, the shared ``csrc/*.cuh`` headers
 and the flags, under
 ``mmgclip_tpu_torch/_build/``.  Builds happen at first use, never at import,
-and every source of a ``build_all`` call compiles in parallel.
+and every source of a ``build_all`` call compiles in parallel.  The host C
+sources (``HOST_SOURCES``: the PNG unfilter) are built the same way by ``cc``
+(or ``gcc``) from ``$PATH``, keyed on the source and ``CC_FLAGS``.
 
 A failed build raises ``RuntimeError`` with the compiler's output: there is
 no fallback that would hide it.
@@ -32,6 +34,8 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_SOURCES = ("png_unfilter.c",)
+CC_FLAGS = ("-O3", "-std=c99", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -55,10 +59,22 @@ def nvcc_path() -> str:
         "the port's CUDA kernels are built from source at first use")
 
 
+def cc_path() -> str:
+    """The host C compiler: ``cc`` or ``gcc`` from ``$PATH``."""
+    for name in ("cc", "gcc"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(
+        "no C compiler (cc or gcc) on $PATH; the port's PNG unfilter is built from "
+        "source at first use")
+
+
 def _library_path(source: str) -> str:
     """The library's path, keyed on the source, the shared headers and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    host = source in HOST_SOURCES
+    digest = hashlib.sha256(" ".join(CC_FLAGS if host else NVCC_FLAGS).encode())
+    headers = [] if host else sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for name in [source, *headers]:
         with open(os.path.join(CSRC_DIR, name), "rb") as fh:
             digest.update(fh.read())
@@ -71,7 +87,10 @@ def _start_build(source: str) -> Tuple[subprocess.Popen, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    if source in HOST_SOURCES:
+        cmd = [cc_path(), *CC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    else:
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp
 
@@ -81,7 +100,7 @@ def _finish_build(source: str, target: str, proc: subprocess.Popen, tmp: str) ->
     BUILD_LOGS[source] = output
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {source} (exit {proc.returncode}):\n{output}")
+        raise RuntimeError(f"{proc.args[0]} failed on {source} (exit {proc.returncode}):\n{output}")
     os.replace(tmp, target)  # atomic: a reader never sees a half-written library
 
 
@@ -124,8 +143,9 @@ def load(source: str) -> ctypes.CDLL:
 
 
 def load_typed(source: str, signatures: Dict[str, list]) -> ctypes.CDLL:
-    """``load(source)`` with each launcher's ``argtypes`` set (every launcher
-    returns a ``cudaError_t`` as int) and ``mmg_cuda_error_string`` typed."""
+    """``load(source)`` with each entry point's ``argtypes`` set (each returns
+    an int: a ``cudaError_t`` for a CUDA launcher, a status for host C) and,
+    for a CUDA source, ``mmg_cuda_error_string`` typed."""
     lib = load(source)
     with _LOCK:
         if not getattr(lib, "_mmg_typed", False):
@@ -133,8 +153,9 @@ def load_typed(source: str, signatures: Dict[str, list]) -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            lib.mmg_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.mmg_cuda_error_string.restype = ctypes.c_char_p
+            if source not in HOST_SOURCES:
+                lib.mmg_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.mmg_cuda_error_string.restype = ctypes.c_char_p
             lib._mmg_typed = True
     return lib
 

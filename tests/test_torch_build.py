@@ -65,6 +65,21 @@ def test_prototypes_match_the_ctypes_signatures(module):
         assert registered == kinds, f"{name}: ctypes {registered} vs C {kinds}"
 
 
+def test_the_png_unfilter_prototype_matches_its_ctypes_signature():
+    """The host C source has no ``extern "C"`` block (it is C): every
+    ``int mmg_*(...) {`` definition of it against ``png_reader._SIGNATURES``."""
+    from mmgclip_tpu_torch.ingest import png_reader
+
+    assert _build.HOST_SOURCES == (png_reader._SOURCE,)
+    with open(os.path.join(_build.CSRC_DIR, png_reader._SOURCE)) as fh:
+        text = re.sub(r"/\*.*?\*/", "", fh.read(), flags=re.DOTALL)
+    ours = {name: [c_kind(a.strip()) for a in args.split(",")]
+            for name, args in _PROTOTYPE.findall(text)}
+    assert ours == {"mmg_png_unfilter": ["int", "long long", "int", "pointer"]}
+    for name, kinds in ours.items():
+        assert [ctypes_kind(t) for t in png_reader._SIGNATURES[name]] == kinds
+
+
 def test_the_block_entry_point_takes_the_workspace():
     kinds = prototypes("fused_block.cu")["mmg_fused_block"]
     assert kinds[:13] == ["int"] + ["pointer"] * 12 and len(kinds) == 20

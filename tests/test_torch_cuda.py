@@ -561,3 +561,26 @@ def test_product_gates_hold_on_the_card(cuda_device, tmp_path):
 
     aucs = chip_smoke.phase_product_gates(cuda_device, str(tmp_path))
     assert set(aucs) == {"baseline", *chip_smoke.GATE_VARIANTS}
+
+
+# ----------------------------------------------------------------------
+# main-path step 4 and the other entry points
+
+def test_report_paths_hold_on_the_card(cuda_device, tmp_path):
+    """``chip_smoke.py`` phase 16 over a reduced-width trained run:
+    ``generate_report`` for a full-field image and a four-view exam through
+    the feature-store preset's kernels (each launched per view), equal to the
+    serving engine's decisions and reports; ``evaluate_cnn`` on the card
+    against the CPU; the unix-socket server answering as ``handle``."""
+    import chip_smoke
+    from mmgclip_tpu_torch.train import run
+
+    tree = chip_smoke.write_train_tree(str(tmp_path / "tree"), 40)
+    run_dir = str(tmp_path / "run")
+    run(chip_smoke.train_config(run_dir, tree, [
+        "networks.text_encoder.config={hidden_size: 64, num_hidden_layers: 2, "
+        "num_attention_heads: 4, intermediate_size: 128}",
+        "dataloader.train.batch_size=8", "dataloader.valid.batch_size=4",
+        "dataloader.test.batch_size=4", "scheduler.config.epochs=1"]), device=cuda_device)
+    out = chip_smoke.phase_report_paths(cuda_device, str(tmp_path), run_dir, tree)
+    assert {"image", "exam", "evaluate_cnn", "serve_ms"} <= set(out["times"])

@@ -5,9 +5,11 @@ An AST check over every module of ``mmgclip_tpu_torch``, ``chip_smoke.py``,
 ``kernel_ab.py``, ``block_sweep.py`` and ``stem_sweep.py`` refuses imports of the JAX package and of packages that machine does not
 have, and a subprocess with those packages blocked in ``sys.modules`` (and
 matplotlib and tensorboard, which the evaluator and the scalar writer only
-try) imports every port module, runs the micro serving path on the CPU, and
+try) imports every port module, runs the micro serving path on the CPU,
 trains, tests and re-evaluates a tiny run through the ``train`` and
-``evaluate_clip`` entry points.
+``evaluate_clip`` entry points, generates its report for one image through
+``generate_report``, evaluates the tower's classifier head through
+``evaluate_cnn`` and answers a ping on the unix-socket server.
 """
 
 import ast
@@ -90,6 +92,38 @@ def test_port_runs_with_the_missing_packages_blocked(tmp_path):
         results = [json.load(open(os.path.join(run_dir, name, "results.json")))
                    for name in ("results", "replay")]
         assert results[0] == results[1] and results[0]["BenignMalignantDatasetLabels"], results
+
+        from mmgclip_tpu_torch import evaluate_cnn, generate_report
+        decisions, text = generate_report.main(["--experiment_path", run_dir, "--image_id",
+                                                "p0200000002cl", "--device", "cpu"])
+        assert set(decisions) and text, (decisions, text)
+        cnn_cfg = chip_smoke.train_config(os.path.join({str(tmp_path)!r}, "cnn"), tree,
+                                          ["dataloader.test.batch_size=2"])
+        table = evaluate_cnn.run(cnn_cfg, device="cpu")
+        assert [row[0] for row in table.rows] == ["benign", "malignant"], table.rows
+
+        import asyncio, socket, threading
+        from mmgclip_tpu_torch.serve import serve_socket
+        engine = InferenceEngine.from_experiment(run_dir, device="cpu")
+        sock, ready, box = os.path.join({str(tmp_path)!r}, "s.sock"), threading.Event(), []
+        loop = asyncio.new_event_loop()
+        def serve():
+            box.append(loop.create_task(serve_socket(engine, unix_path=sock, ready_event=ready)))
+            try:
+                loop.run_until_complete(box[0])
+            except asyncio.CancelledError:
+                pass
+        thread = threading.Thread(target=serve)
+        thread.start()
+        assert ready.wait(60)
+        conn = socket.socket(socket.AF_UNIX)
+        conn.connect(sock)
+        conn.sendall(b'{{"op": "ping", "id": 5}}\\n')
+        assert json.loads(conn.makefile().readline()) == {{"id": 5, "result": {{"ok": True}}}}
+        conn.close()
+        loop.call_soon_threadsafe(box[0].cancel)
+        thread.join(60)
+        engine.close()
         blocked = [m for m in {BLOCKED!r} if sys.modules.get(m) is not None]
         assert not blocked, blocked
         print("OK")
@@ -133,6 +167,9 @@ def test_block_sweep_fails_without_cuda_and_writes_nothing(tmp_path):
     ("train", []),
     ("evaluate_clip", ["--experiment_path", "/nonexistent", "--run_name", "x"]),
     ("encode_images", []),
+    ("evaluate_cnn", []),
+    ("generate_report", ["--experiment_path", "/nonexistent", "--image_id", "p0200000002cl"]),
+    ("serve", ["--experiment_path", "/nonexistent", "--unix", "/nonexistent.sock"]),
 ])
 def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked(module, argv, monkeypatch):
     import importlib

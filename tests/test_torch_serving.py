@@ -16,20 +16,17 @@ import random
 import subprocess
 import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
-from flax import serialization
 
 import serve as jax_serve
-from fixtures import build_image_label_tree, make_image_id
-from mmgclip_tpu.config import recompose as jax_recompose
-from mmgclip_tpu.serving import InferenceEngine as JaxEngine
+from fixtures import make_image_id
 from mmgclip_tpu_torch import serve
 from mmgclip_tpu_torch.config import recompose
 from mmgclip_tpu_torch.evaluation.report_text import generate_report
 from mmgclip_tpu_torch.serving import InferenceEngine
+from torch_demo import demo_towers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN = os.path.join(REPO, "outputs", "demo", "run")
@@ -39,19 +36,8 @@ FEATURE_RTOL = 1e-4
 
 @pytest.fixture(scope="module")
 def engines(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("demo"))
-    base, _annotated, _lists, _ = build_image_label_tree(
-        root, n_benign=10, n_malignant=10, image_size=64, feature_store=False,
-        pixel_class_signal=True)
-    jcfg = jax_recompose(RUN)
-    jcfg.checkpoints.checkpoints_export_dir = os.path.join(RUN, "checkpoints")
-    jax_engine = JaxEngine(jcfg)
-    text_path = os.path.join(root, "text_tower.msgpack")
-    convnext_path = os.path.join(root, "convnext_tower.npz")
-    with open(text_path, "wb") as fh:
-        fh.write(serialization.to_bytes(jax.device_get(jax_engine.model.text_variables)))
-    with open(convnext_path, "wb") as fh:
-        fh.write(serialization.to_bytes(jax.device_get(jax_engine.encode_params)))
+    (base, _annotated, _lists), jax_engine, text_path, convnext_path = demo_towers(
+        str(tmp_path_factory.mktemp("demo")))
     cfg = recompose(RUN)
     cfg.checkpoints.checkpoints_export_dir = os.path.join(RUN, "checkpoints")
     cfg.networks.image_encoder.convnext_tiny_clf_path = convnext_path
