@@ -31,14 +31,23 @@ main path over the trained run, the tower in the feature-store preset:
 engine's decisions and reports; ``evaluate_cnn`` against its CPU run; and
 the unix-socket server answering 36 concurrent clients as ``handle`` does.
 
+Phase 17 drives the exam-report family: ``encode_studies`` over studies of
+four full-field views in the feature-store preset (study vectors against the
+serving engine's views and the plain tower), ``train_exam_reports_clf`` at
+BERT-base width under ``CLIPLoss`` and ``MMGCLIPLoss``, ``PromptClassifier``
+against the engine and the BatchNorm and MoE heads on the card against the
+CPU.  Phases 14 and 17 hold the fused epoch captured as a CUDA graph against
+the eager epoch from the same state.
+
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks what comes out, and times every kernel beside its plain
 version, its bound and (where one exists) the one PyTorch call that computes
 the same function, plus the encode programs, ``extract()`` (split into
 decode, device and write seconds), PNG decode (compiled and plain unfilter),
-the global loss, the text bank, the train step, ``test()``, ``generate_report``
-and the socket server's ms per request.  The times phase keeps its number,
-11, and runs after phases 12-16.
+the global loss, the text bank, the train step, ``test()``, ``generate_report``,
+the socket server's ms per request, studies/s of ``encode_studies`` and the
+graphed and eager train steps.  The times phase keeps its number, 11, and
+runs after phases 12-17.
 
 Imports nothing of JAX or of ``mmgclip_tpu``.  Exits non-zero, without the
 result line, when CUDA is unavailable or any phase fails.  The last line is
@@ -1098,6 +1107,68 @@ def train_config(run_dir, tree, extra=()):
     return cfg
 
 
+GRAPH_REL_TOL = 1e-6          # graphed vs eager fused epochs: losses and params, fp32
+
+
+def graph_vs_eager(device, cfg, label, epochs=2):
+    """Two experiments built from one seeded config: the fused epoch as a
+    CUDA graph in one, eager in the other, ``epochs`` epochs each (the first
+    graphed epoch starts with its eager warm-up steps and the capture).
+    Losses and the trainable params must agree within ``GRAPH_REL_TOL``; a
+    last graphed epoch runs under ``torch.profiler`` for the device time of a
+    step.  -> {"graph_ms", "eager_ms", "bit_equal", "kernel_ms"} per step."""
+    from mmgclip_tpu_torch.train import build_experiment
+    from mmgclip_tpu_torch.training.optim import set_learning_rate
+    from mmgclip_tpu_torch.weights import clip_params_tree, flatten_tree
+
+    out, runs = {}, {}
+    for mode in ("graph", "eager"):
+        experiment = build_experiment(cfg, device=device)
+        experiment.use_cuda_graph = mode == "graph" and device.type == "cuda"
+        losses = []
+        for epoch in range(epochs):
+            experiment.current_epoch = epoch
+            set_learning_rate(experiment.optimizer, experiment.scheduler.lr_at(epoch))
+            losses.append(experiment.train())
+        if mode == "graph" and (experiment._graph is None) == (device.type == "cuda"):
+            raise AssertionError(f"{label}: graph captured {experiment._graph is not None} on {device}")
+        steps = experiment.timings["epoch_steps"]
+        out[f"{mode}_ms"] = ([ms / n for ms, n in zip(experiment.timings["epoch_device_ms"], steps)]
+                             if experiment.timings["epoch_device_ms"] else [])
+        runs[mode] = (experiment, np.asarray(losses), flatten_tree(clip_params_tree(experiment.model)))
+    (graphed, g_loss, g_params), (_eager, e_loss, e_params) = runs["graph"], runs["eager"]
+    rel = float(np.max(np.abs(g_loss - e_loss) / np.abs(e_loss)))
+    param_rel = max(float(np.max(np.abs(g_params[k] - v)) / max(float(np.max(np.abs(v))), 1e-30))
+                    for k, v in e_params.items())
+    out["bit_equal"] = bool(np.array_equal(g_loss, e_loss)
+                            and all(np.array_equal(g_params[k], v) for k, v in e_params.items()))
+    log(f"    {label}: graphed vs eager fused epochs (dropout "
+        f"{cfg.get_path('networks.dropout.config.dropout', 0.0)}): losses {g_loss.tolist()} vs "
+        f"{e_loss.tolist()}, max rel {rel:.3e}, params max rel {param_rel:.3e} (tol "
+        f"{GRAPH_REL_TOL:.0e}); bit-equal: {out['bit_equal']}; ms per step (CUDA events over the "
+        f"epoch) graphed {[round(v, 4) for v in out['graph_ms']]}, eager "
+        f"{[round(v, 4) for v in out['eager_ms']]}")
+    if not (rel <= GRAPH_REL_TOL and param_rel <= GRAPH_REL_TOL):
+        raise AssertionError(f"{label}: graphed and eager epochs differ: {rel}, {param_rel}")
+    out["kernel_ms"] = None
+    if device.type == "cuda":
+        graphed.current_epoch = epochs
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            graphed.train()
+        kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        steps, epoch_ms = graphed.timings["epoch_steps"][-1], graphed.timings["epoch_device_ms"][-1]
+        if kernel_us > 0:
+            out["kernel_ms"] = kernel_us / 1e3 / steps
+            log(f"    {label}: torch.profiler over one graphed epoch: device time "
+                f"{out['kernel_ms']:.4f} ms per step against {epoch_ms / steps:.4f} ms per step "
+                f"on CUDA events (the card idle {1 - out['kernel_ms'] * steps / epoch_ms:.1%})")
+        else:
+            log(f"    {label}: torch.profiler saw no device time in the graphed epoch: "
+                f"a step's device time is not measured")
+    return out
+
+
 def phase_training(device, tmp, smi):
     """``mmgclip_tpu_torch.train.run`` at full width (BERT-base, 1xLinear512,
     batch 32, AdamW + warmup-cosine, 3 epochs, then test()), the stored run
@@ -1182,6 +1253,9 @@ def phase_training(device, tmp, smi):
         f"train step {', '.join(f'{v:.3f}' for v in per_step)} ms per epoch (CUDA events over the "
         f"fused epoch / {steps[0]} steps) = {times['samples_per_s']:.0f} samples/s in the last epoch; "
         f"test() {times['test_s']:.3f} s; run() {wall:.1f} s (host clock)")
+
+    times["graph"] = graph_vs_eager(device, train_config(os.path.join(tmp, "graph_check"), tree),
+                                    "train_binary_class_clf at full width")
 
     small = write_train_tree(os.path.join(tmp, "small_tree"), 32)
     extra = ["networks.text_encoder.config={hidden_size: 64, num_hidden_layers: 2, "
@@ -1627,6 +1701,351 @@ def phase_report_paths(device, tmp, run_dir, train_tree, shapes=FFDM_SHAPES, tow
     return {"report_dir": report_dir, "image": image, "views": views, "times": times}
 
 
+# ----------------------------------------------------------------------
+# phase 17: the exam-report family (encode_studies, train_exam_reports_clf, the heads)
+EXAM_PATIENT0 = 2300000
+EXAM_STUDIES = 8              # encoded studies, four full-field views each
+EXAM_TRAIN_ROWS = 512         # the encoded studies plus seeded separable 768-d features
+EXAM_REDUCED_ROWS = 64        # the card-vs-CPU runs at reduced width
+EXAM_TEXT_REDUCED = ("{hidden_size: 64, num_hidden_layers: 2, num_attention_heads: 4, "
+                     "intermediate_size: 128}")
+EXAM_PROMPTS = ["Finding suggesting benign.", "Finding suggesting malignant.", "BIRADS unknown."] + \
+    [f"BIRADS score of {i}." for i in range(7)]
+PLAIN_TOWER = {"dtype": "bfloat16", "use_fused_blocks": False}  # no kernel on its path
+
+
+def flow(mapping):
+    """A dict as a YAML flow mapping, for a ``key={...}`` override."""
+    return "{" + ", ".join(f"{k}: {str(v).lower() if isinstance(v, bool) else v}"
+                           for k, v in mapping.items()) + "}"
+
+
+def exam_labels(i):
+    """The ``labels`` cell of study ``i`` (``tests/fixtures.py``'s recipe)."""
+    return {"birads": str(2 + i % 4) if i % 3 else "unknown", "malignancy": i % 2,
+            "masses": {"shapes": ["oval", "round", "irregular", "unknown"][i % 4], "density": "unknown"},
+            "calcifications": {"distribution": ["diffuse", "unknown"][i % 2], "morphology": "unknown"}}
+
+
+EXAM_WORDS = ("mass", "calcification", "benign", "malignant", "oval", "irregular", "round",
+              "margin", "density", "lesion", "breast", "left", "right", "upper", "outer",
+              "quadrant", "stable", "new", "suspicious", "biopsy", "follow", "up", "no", "clear")
+
+
+def exam_row(i, study_path, rng=None):
+    """Row ``i`` of an exam table; with ``rng`` its report and impression are
+    seeded words of seeded length (texts that differ in length and content,
+    so a batch's pooled text features differ: BatchNorm's batch statistics
+    stay well-conditioned)."""
+    pid = f"{EXAM_PATIENT0 + i:08d}"
+    report = f"The report of study {i} shows findings. BIRADS {2 + i % 4}."
+    impression = f"Impression of study {i}."
+    if rng is not None:
+        report, impression = (" ".join(rng.choice(EXAM_WORDS, size=int(rng.integers(3, 24)))) + "."
+                              for _ in range(2))
+    return {"patient_id": pid, "study_id": "st02", "is_malig": str(i % 2),
+            "labels": str(exam_labels(i)), "image_impression": impression,
+            "image_description": report, "study_path": study_path}
+
+
+def write_exam_tree(root, shapes, n_studies):
+    """``n_studies`` studies of four 16-bit views (two of each shape, copies
+    of eight distinct images, half of them Paeth-filtered) and one study
+    whose only view is corrupt, in the store's layout.  -> (rows of the
+    post-translation CSV, study dirs with views, the corrupt view)."""
+    base = os.path.join(root, "png_archive", "2D_100micron", "0")
+    unique = []
+    os.makedirs(os.path.join(root, "unique"))
+    for k in range(8):  # shape k % 2; Paeth for k in 0, 1, 4, 5
+        unique.append(os.path.join(root, "unique", f"{k}.png"))
+        write_png16(unique[k], synthetic_mammogram(*shapes[k % 2], seed=80 + k), paeth=(k // 2) % 2 == 0)
+    rows, studies, corrupt = [], [], None
+    for i in range(n_studies + 1):
+        pid = f"{EXAM_PATIENT0 + i:08d}"
+        study = os.path.join(base, pid[:2], pid, "st02")
+        os.makedirs(study)
+        if i == n_studies:
+            corrupt = os.path.join(study, f"p{pid}02cl.png")
+            with open(corrupt, "wb") as fh:
+                fh.write(b"\x89PNG\r\n\x1a\n" + b"\x00" * 64)  # a signature and no chunks
+        else:
+            for j, view in enumerate(VIEWS):  # views 0, 1 of shape 0; 2, 3 of shape 1
+                shutil.copy(unique[2 * ((i + j) % 4) + j // 2], os.path.join(study, f"p{pid}02{view}.png"))
+            studies.append(study)
+        rows.append(exam_row(i, study))
+    return rows, studies, corrupt
+
+
+def write_exam_training(root, encoded, n_rows, seed=0, varied=False):
+    """``final_reports_dataset.csv`` of ``encoded`` rows plus seeded
+    separable 768-d study features up to ``n_rows`` (``varied``: with seeded
+    reports, see ``exam_row``), and the GTR label csv (half the studies
+    have GTR labels).  -> (reports csv, gtr csv)."""
+    from mmgclip_tpu_torch.data.csv_table import Table, write_csv
+
+    rng = np.random.default_rng(seed)
+    rows = [dict(r) for r in encoded]
+    for i in range(len(rows), n_rows):
+        pid = f"{EXAM_PATIENT0 + i:08d}"
+        path = os.path.join(root, "store", "0", pid[:2], pid, "st02", f"{pid}.npy")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        feat = rng.normal(size=768).astype(np.float32)
+        feat[:64] += 3.0 if i % 2 else -3.0
+        np.save(path, feat)
+        rows.append(exam_row(i, path, rng if varied else None))
+    gtr = [{"gtr_path": f"/gtr/{r['patient_id']}02xx.dcm", "gtr_mass": str(i % 4 == 0),
+            "gtr_calc": str(i % 4 == 2), "gtr_malign": str(i % 2 == 1),
+            "gtr_mass_margin": str(1 + i % 4), "gtr_is_architectural_distortion": str(i % 8 == 4),
+            "gtr_histology": str(i % 3)} for i, r in enumerate(rows) if i % 2 == 0]
+    reports_csv, gtr_csv = os.path.join(root, "final_reports_dataset.csv"), os.path.join(root, "gtr.csv")
+    write_csv(reports_csv, Table.from_rows(rows))
+    write_csv(gtr_csv, Table.from_rows(gtr), index=False)
+    return reports_csv, gtr_csv
+
+
+def exam_config(run_dir, reports_csv, gtr_csv, extra=()):
+    from mmgclip_tpu_torch.config import compose, save_snapshot
+
+    cfg = compose(os.path.join(REPO, "configs"), "train_exam_reports_clf", [
+        f"dataset.config.final_reports_dataset_path={reports_csv}",
+        f"dataset.config.gt_path={gtr_csv}",
+        f"base.tensorboard_export_dir={run_dir}/runs",
+        "scheduler.config.epochs=3", *extra], run_dir=run_dir)
+    save_snapshot(cfg, run_dir)  # what compose_run writes: serving reads it
+    return cfg
+
+
+def exam_encode(device, root, smi, shapes, tower, text_extra, n_studies):
+    """Phase 17 (a): ``encode_studies`` with ``extract_features=true`` over
+    ``n_studies`` studies and one corrupt study, held as ``phase_exam`` says.
+    -> (final table, study vectors, times)."""
+    from mmgclip_tpu_torch import encode_studies
+    from mmgclip_tpu_torch.cli import compose_run
+    from mmgclip_tpu_torch.config import Config
+    from mmgclip_tpu_torch.data.csv_table import Table, read_csv, write_csv
+    from mmgclip_tpu_torch.ingest.encode import _Encoder, load_convnext_tower
+    from mmgclip_tpu_torch.ingest.png_reader import decode_png
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.serving import InferenceEngine
+    from mmgclip_tpu_torch.utils.flax_msgpack import to_bytes
+    from mmgclip_tpu_torch.weights import module_tree
+
+    on_card = device.type == "cuda"
+    times = {}
+    t0 = time.perf_counter()
+    post_rows, studies, corrupt = write_exam_tree(os.path.join(root, "tree"), shapes, n_studies)
+    post_csv = os.path.join(root, "postprocessed_tr_dataset.csv")
+    write_csv(post_csv, Table.from_rows(post_rows), encoding="latin1")
+    weights_cfg = Config({"networks": {"image_encoder": {"convnext_tiny_clf_path": "",
+                                                         "config": Config(tower)}}})
+    module, _cn = load_convnext_tower(weights_cfg)
+    set_layer_scale(module, 0.1)
+    weights = os.path.join(root, "convnext.npz")  # flax bytes; the loader keys on .npz
+    with open(weights, "wb") as fh:
+        fh.write(to_bytes({"params": module_tree(module)}))
+    store = os.path.join(root, "store")
+    argv = [f"dataset.config.post_translation_dataset_path={post_csv}",
+            "dataset.config.post_translation_fileid=exam", f"base.features_export_dir={store}",
+            f"networks.image_encoder.convnext_tiny_clf_path={weights}",
+            f"networks.image_encoder.config={flow(tower)}",
+            "dataset.config.concatenate_features_method=avgpool", "dataset.config.n_images_per_study=4",
+            f"hydra.run.dir={os.path.join(root, 'encode_run')}", "extract_features=true", *text_extra]
+    log(f"    {n_studies} studies x 4 views {shapes} (Paeth for half the images) + 1 corrupt "
+        f"study written in {time.perf_counter() - t0:.2f} s")
+    cwd = os.getcwd()
+    os.makedirs(os.path.join(root, "cwd"))
+    os.chdir(os.path.join(root, "cwd"))
+    try:
+        cfg = compose_run("train_exam_reports_clf", argv, snapshot=False)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        final, extractor = encode_studies.extract(cfg, device=device)
+        if on_card:
+            torch.cuda.synchronize()
+        times["encode_s"] = time.perf_counter() - t0
+        counts = launch_counts()
+        final_csv = os.path.join(os.getcwd(), "data", "exam", "final_reports_dataset.csv")
+    finally:
+        os.chdir(cwd)
+    calls = 2 * -(-2 * n_studies // extractor.batch_size)  # two shapes, 2 * n_studies views each
+    check_counts(f"encode_studies ({4 * n_studies} views in {calls} program calls of one shape each)",
+                 counts, {k: v * calls for k, v in (PER_VIEW_LAUNCHES if on_card else {}).items()})
+    failed = open(os.path.join(store, "failed.txt")).read().split("\n")
+    if failed[0] != corrupt:
+        raise AssertionError(f"failed.txt reads {failed[:2]}, expected {corrupt}")
+    table = read_csv(final_csv, encoding="latin1", index_col=0)
+    if [r["patient_id"] for r in table.rows] != [r["patient_id"] for r in post_rows[:n_studies]]:
+        raise AssertionError(f"final_reports_dataset.csv holds {table.column('patient_id')}")
+    vectors = np.stack([np.load(r["study_path"]) for r in table.rows])
+    if vectors.shape != (n_studies, 768) or not np.isfinite(vectors).all():
+        raise AssertionError(f"study vectors {vectors.shape}, finite {np.isfinite(vectors).all()}")
+    split = extractor.timings
+    log(f"    encode_studies: {n_studies} studies in {times['encode_s']:.2f} s = "
+        f"{n_studies / times['encode_s']:.2f} studies/s ({4 * n_studies / times['encode_s']:.2f} "
+        f"views/s; host clock, decode and writes included): decode {split['decode_s']:.3f} s summed "
+        f"over the threads, waiting on decodes {split['decode_wait_s']:.3f} s, device "
+        f"{split['device_s']:.3f} s, writes {split['write_s']:.3f} s ({smi}); failed.txt: "
+        f"{os.path.basename(failed[0])!r}: {failed[1]!r}")
+    times["encode_split"] = split
+
+    views = [[os.path.join(study, f) for f in sorted(os.listdir(study))] for study in studies]
+    engine = InferenceEngine(cfg, device=device)
+    served = engine.encode_paths([v for study in views for v in study]).reshape(n_studies, 4, -1)
+    engine.close()
+    cos = cosine(vectors, served.mean(axis=1))
+    plain_tower = {**{k: v for k, v in tower.items() if k == "micro"}, **PLAIN_TOWER}
+    plain_cfg = compose_run("train_exam_reports_clf", argv[:4] + [
+        f"networks.image_encoder.config={flow(plain_tower)}"] + argv[5:], snapshot=False)
+    plain = _Encoder(plain_cfg, device=device)
+    plain_fn = plain._encode_fn()
+    with torch.inference_mode():
+        plain_views = np.stack([
+            np.stack([plain_fn(torch.from_numpy(decode_png(v)[None]).to(device)).float().cpu().numpy()[0]
+                      for v in study]) for study in views])
+    plain_cos = cosine(vectors, plain_views.mean(axis=1))
+    log(f"    study vectors vs the mean of InferenceEngine.encode_paths over the views (same "
+        f"config): cosine >= {cos.min():.7f}; vs the plain unfused bf16 tower: cosine >= "
+        f"{plain_cos.min():.5f}")
+    if not (cos >= STORE_VS_SERVED_COSINE).all():
+        raise AssertionError(f"study vs served cosine {cos} < {STORE_VS_SERVED_COSINE}")
+    if not (plain_cos >= INT8_VS_BF16_COSINE).all():
+        raise AssertionError(f"study vs plain tower cosine {plain_cos} < {INT8_VS_BF16_COSINE}")
+
+    return table, vectors, times
+
+
+def phase_exam(device, tmp, smi, shapes=FFDM_SHAPES, tower=REPORT_TOWER, text=None,
+               n_studies=EXAM_STUDIES, n_train=EXAM_TRAIN_ROWS, n_reduced=EXAM_REDUCED_ROWS,
+               batch=64):
+    """The exam-report family through its entry points.
+
+    (a) ``encode_studies`` (``extract_features=true``) over ``n_studies``
+    studies of four full-field views and one study whose only view is
+    corrupt, the tower in the feature-store preset: each bucket of views of
+    one shape is one program call launching ``PER_VIEW_LAUNCHES`` (22 on the
+    card); every study vector within cosine ``STORE_VS_SERVED_COSINE`` of the
+    mean of ``InferenceEngine.encode_paths`` over its views (same config) and
+    ``INT8_VS_BF16_COSINE`` of the plain unfused tower's; the corrupt study in
+    ``failed.txt`` and out of ``final_reports_dataset.csv``.
+    (b) ``train.run`` on ``train_exam_reports_clf`` (BERT-base, 256 tokens,
+    ``2xLinear512``, dropout 0.2, batch 64, GTR prompts) over ``n_train``
+    studies, under ``CLIPLoss`` and ``MMGCLIPLoss``: finite validation AUCs;
+    the fused epoch graphed against eager; card against CPU at reduced width.
+    (c) ``PromptClassifier`` against the engine's ``classify``, and the
+    ``ProjectionHead`` and ``moe512`` heads training on the card against the
+    CPU.  ``text`` overrides the BERT config everywhere (the CPU rehearsal).
+    -> times."""
+    from mmgclip_tpu_torch.models.clip import PromptClassifier
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.serving import InferenceEngine
+    from mmgclip_tpu_torch.train import run
+    from mmgclip_tpu_torch.training.checkpoint import load_checkpoint
+    from mmgclip_tpu_torch.utils.tb import read_scalars
+
+    on_card = device.type == "cuda"
+    root = os.path.join(tmp, "exam")
+    text_extra = [f"networks.text_encoder.config={text}"] if text else []
+
+    table, vectors, times = exam_encode(device, root, smi, shapes, tower, text_extra, n_studies)
+
+    # (b) train_exam_reports_clf --------------------------------------------
+    reports_csv, gtr_csv = write_exam_training(root, table.rows, n_train)
+    train_extra = [*text_extra, f"dataloader.train.batch_size={batch}",
+                   f"dataloader.valid.batch_size={batch}"]
+    runs = {}
+    for loss in ("clip", "mmgclip"):
+        run_dir = os.path.join(root, f"run_{loss}")
+        cfg = exam_config(run_dir, reports_csv, gtr_csv, [f"loss={loss}", *train_extra])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        experiment = run(cfg, device=device)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_counts(f"train_exam_reports_clf ({loss}; the JAX trainer's path launches no kernel)",
+                     launch_counts(), {})
+        scalars = read_scalars(cfg.base.tensorboard_export_dir)
+        aucs = {tag: scalars[tag] for tag in ("auc/val/malig", "auc/val/shapes", "auc/val/birads")}
+        losses = scalars["loss/train"] + scalars["loss/val"]
+        if not (np.isfinite(losses).all() and len(scalars["loss/train"]) == 3
+                and all(len(v) == 3 and np.isfinite(v).all() for v in aucs.values())):
+            raise AssertionError(f"{loss}: losses {losses}, AUCs {aucs}")
+        if experiment.test_dataloader is not None or \
+                os.path.exists(os.path.join(cfg.base.results_export_dir, "results.json")):
+            raise AssertionError("the exam family has no test split: test() must not run")
+        steps, ms = experiment.timings["epoch_steps"], experiment.timings["epoch_device_ms"]
+        per_step = [m / n for m, n in zip(ms, steps)]
+        text_cfg = experiment.model.bert_config
+        log(f"    train_exam_reports_clf, {cfg.loss.config.loss_name}: BERT {text_cfg.hidden_size}x"
+            f"{text_cfg.num_hidden_layers} ({cfg.tokenizer.config.sequence_length} tokens), "
+            f"{cfg.projection.config.projection_name} {cfg.projection.config.output_projection_dimension}, "
+            f"dropout {cfg.networks.dropout.config.dropout}, batch {batch}, {len(experiment._train_indices)} "
+            f"train studies: train loss {scalars['loss/train']}, val loss {scalars['loss/val']}, val AUC "
+            + ", ".join(f"{k.split('/')[-1]} {v[-1]:.4f}" for k, v in aucs.items())
+            + (f"; train step {[round(v, 4) for v in per_step]} ms (CUDA events / {steps[0]} steps)"
+               if per_step else "") + f"; run() {wall:.2f} s")
+        runs[loss] = (cfg, run_dir, experiment)
+        times[f"train_{loss}_step_ms"] = per_step
+    times["graph"] = graph_vs_eager(device, exam_config(
+        os.path.join(root, "graph_check"), reports_csv, gtr_csv, ["loss=mmgclip", *train_extra]),
+        "train_exam_reports_clf (MMGCLIPLoss) at full width")
+
+    # reduced width: the templated texts of the full-width runs, except for
+    # the BatchNorm head, which trains on seeded reports and impressions with
+    # no GTR prompts: over rows that repeat a few templates its batch variance
+    # E[x^2] - E[x]^2 cancels catastrophically, and the losses of an H100
+    # and the CPU part by up to 12%.  Top-1 routing (moe512) flips where a
+    # row's router probabilities tie within rounding; the templated texts
+    # have no such row
+    templated, _ = write_exam_training(os.path.join(root, "reduced"), [], n_reduced, seed=1)
+    varied, _ = write_exam_training(os.path.join(root, "reduced_varied"), [], n_reduced, seed=1,
+                                    varied=True)
+    reduced = [f"networks.text_encoder.config={text or EXAM_TEXT_REDUCED}",
+               "networks.dropout.config.dropout=0.0", "dataloader.train.batch_size=8",
+               "dataloader.valid.batch_size=4"]
+    heads = {"2xLinear512": (templated, []),
+             "ProjectionHead": (varied, ["projection.config.projection_name=ProjectionHead",
+                                         "projection.config.output_projection_dimension=512",
+                                         "dataset.config.gtr_prompt_generation=false",
+                                         "scheduler.config.epochs=2"]),
+             "moe512": (templated, ["projection=moe512", "scheduler.config.epochs=2"])}
+    for label, loss, head in (("clip", "clip", "2xLinear512"), ("mmgclip", "mmgclip", "2xLinear512"),
+                              ("ProjectionHead", "mmgclip", "ProjectionHead"),
+                              ("moe512", "mmgclip", "moe512")):
+        reports, extra = heads[head]
+        got = {}
+        for dev in (device.type, "cpu"):
+            cfg = exam_config(os.path.join(root, f"reduced_{label}_{dev}"), reports, gtr_csv,
+                              [f"loss={loss}", *reduced, *extra])
+            run(cfg, device=dev)
+            scalars = read_scalars(cfg.base.tensorboard_export_dir)
+            got[dev] = np.asarray(scalars["loss/train"] + scalars["loss/val"])
+        rel = np.abs(got[device.type] - got["cpu"]) / np.abs(got["cpu"])
+        log(f"    reduced width ({label}, {loss}, dropout 0): {device.type} {got[device.type].tolist()} vs "
+            f"CPU {got['cpu'].tolist()}: max rel {rel.max():.3e} (tol {TRAIN_LOSS_REL_TOL:.0e})")
+        if not (np.isfinite(rel).all() and rel.max() <= TRAIN_LOSS_REL_TOL):
+            raise AssertionError(f"exam training {label}: {device.type} vs CPU losses differ by {rel}")
+
+    # (c) PromptClassifier against the serving engine ----------------------
+    cfg, run_dir, _experiment = runs["mmgclip"]
+    engine = InferenceEngine.from_experiment(run_dir, device=device)
+    ckpt = os.path.join(run_dir, "checkpoints", cfg.checkpoints.checkpoints_file_name)
+    classifier = PromptClassifier(engine.model, engine.tokenizer,
+                                  params=load_checkpoint(ckpt)["params"])
+    out = classifier(vectors, EXAM_PROMPTS)
+    ref = engine.classify(vectors, EXAM_PROMPTS)
+    engine.close()
+    diff = np.abs(out["classes_similarities"].cpu().numpy() - np.asarray(ref["classes_similarities"])).max()
+    if out["similarities_argmax_per_image"] != ref["similarities_argmax"] or diff > SERVE_PROB_TOL \
+            or out["similarities_argmax"] != ref["similarities_argmax"][0]:
+        raise AssertionError(f"PromptClassifier {out['similarities_argmax_per_image']} vs the engine's "
+                             f"classify {ref['similarities_argmax']} (max diff {diff})")
+    log(f"    PromptClassifier over the trained run ({device.type}): decisions "
+        f"{out['similarities_argmax_per_image']} equal to InferenceEngine.classify, probabilities "
+        f"within {diff:.2e} (tol {SERVE_PROB_TOL:.0e})")
+    return times
+
+
 def timing_ring(device, peaks, smi, launches, max_err):
     """The ring per (P, shape, dtype) beside its bound, its plain version and
     the library pair (torch.cat, then a copy into each output), all as device
@@ -1899,7 +2318,12 @@ def main() -> int:
             "server over the trained run, the tower in the feature-store preset")
         report = phase_report_paths(device, tmp.name, train_run, train_tree)
 
-        # 11. times (after 12-16) --------------------------------------------------------
+        # 17. the exam-report family --------------------------------------------------------
+        log("[17] the exam-report family: encode_studies (feature-store preset), "
+            "train_exam_reports_clf (CLIPLoss, MMGCLIPLoss), PromptClassifier and the heads")
+        phase_exam(device, tmp.name, smi)
+
+        # 11. times (after 12-17) --------------------------------------------------------
         log("[11] times (CUDA events, median of 10 after 3 warmup unless stated)")
         kernels = timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts,
                                block_err, flash_err)

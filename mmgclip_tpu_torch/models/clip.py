@@ -10,6 +10,7 @@ module (``weights.load_clip_params`` loads the JAX trainable tree,
 ``logit_scale`` (``trainable_parameters``), as in the JAX package.
 ``forward(train=True)`` applies head dropout from an explicit
 ``torch.Generator`` and adds the T2T branch for ``MMGCLIPLoss``.
+``PromptClassifier`` is the zero-shot wrapper over a model.
 
 Not ported yet (ROADMAP.md): the causal/BioGPT text tower and the trainable
 ResNet-50 image tower.
@@ -113,12 +114,15 @@ class MMGCLIP(nn.Module):
         if projection_name != "ZeroProjection":
             head_cls = get_projection_head(projection_name)
             proj_dim = config.projection.config.output_projection_dimension
+            # the head's own knobs from the projection config (MoE: n_experts...)
+            extra = {key: config.projection.config[key] for key in getattr(head_cls, "EXTRA_KNOBS", ())
+                     if key in config.projection.config}
             self.image_projection = head_cls(
                 self.image_features_dimension, proj_dim, dropout,
-                generator=torch.Generator().manual_seed(seed + 2))
+                generator=torch.Generator().manual_seed(seed + 2), **extra)
             self.text_projection = head_cls(
                 self.text_output_dimension, proj_dim, dropout,
-                generator=torch.Generator().manual_seed(seed + 3))
+                generator=torch.Generator().manual_seed(seed + 3), **extra)
             logger.info(f"Embeddings projected to {proj_dim} features using {projection_name}.")
         temperature = float(config.networks.logit_temperature)
         self.logit_scale = nn.Parameter(
@@ -205,3 +209,70 @@ class MMGCLIP(nn.Module):
                     self.project_text(text_features2, train, generator))
         return output
 
+
+class PromptClassifier:
+    """Zero-shot wrapper (reference: mmgclip_model.py:168-249; port of the
+    JAX package's ``PromptClassifier``).
+
+    Tokenizes a prompt list, runs the text tower and head once per list
+    (cached), and softmaxes ``logit_scale · img @ textᵀ`` once.  The cache is
+    dropped when the parameters change: assigning ``params`` (a JAX-layout
+    trainable tree, loaded in place) or any in-place update of the model's
+    trainable tensors, such as a training step, bumps their version.
+    ``similarities_argmax`` is the first image's (quirk Q10, the reference's
+    ``argmax(...)[0].item()``); ``similarities_argmax_per_image`` holds all.
+    """
+
+    def __init__(self, model: MMGCLIP, tokenizer, params: Optional[Dict] = None):
+        self.model = model
+        self.tokenizer = tokenizer
+        self._text_cache: Dict[tuple, torch.Tensor] = {}
+        self._cache_version = None
+        if params is not None:
+            self.params = params
+
+    @property
+    def params(self) -> Dict[str, nn.Parameter]:
+        return self.model.trainable_parameters()
+
+    @params.setter
+    def params(self, tree: Dict) -> None:
+        from ..weights import load_clip_params
+
+        load_clip_params(self.model, tree)
+
+    def _params_version(self) -> tuple:
+        return tuple((id(p), p._version) for p in self.model.trainable_parameters().values())
+
+    @torch.no_grad()
+    def encode_prompts(self, class_list) -> torch.Tensor:
+        version = self._params_version()
+        if version != self._cache_version:
+            # cached embeddings would mix old text with new image projections
+            self._text_cache.clear()
+            self._cache_version = version
+        key = tuple(class_list)
+        if key not in self._text_cache:
+            tokens = self.tokenizer(list(class_list), padding="max_length", truncation=True,
+                                    max_length=int(self.model.config.tokenizer.config.sequence_length))
+            pooled = self.model.apply_text_tower(tokens)
+            self._text_cache[key] = l2_normalize(self.model.project_text(pooled, train=False))
+        return self._text_cache[key]
+
+    @torch.no_grad()
+    def __call__(self, image_features, class_list, visualize: bool = False, **_) -> Dict:
+        feats = torch.as_tensor(np.asarray(image_features, np.float32), device=self.model.device)
+        if feats.ndim == 1:
+            feats = feats[None, :]
+        feats = self.model.apply_image_tower(feats)
+        image_embeddings = l2_normalize(self.model.project_image(feats, train=False))
+        text_embeddings = self.encode_prompts(class_list)
+        logits = torch.exp(self.model.logit_scale) * image_embeddings @ text_embeddings.T
+        sims = torch.softmax(logits, dim=-1)
+        argmax = torch.argmax(sims, dim=-1).cpu().tolist()  # one read back for all images
+        return {
+            "classes_similarities": sims,
+            "similarities_argmax": int(argmax[0]),
+            "similarities_argmax_per_image": [int(v) for v in argmax],
+            "class_list": list(class_list),
+        }

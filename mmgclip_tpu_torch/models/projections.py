@@ -1,12 +1,13 @@
 """Projection heads mapping tower features into the joint space
 (port of mmgclip_tpu/models/projections.py).
 
-The heads the stock ``configs/projection/`` files name: bias-free linear,
-multi-linear stack with ReLU (+dropout) and the residual MLP head.  The
-BatchNorm ``ProjectionHead`` and the MoE head are not ported yet.  Dropout
-is the identity at inference; in training (``train=True``) it draws its
-masks from the ``torch.Generator`` the caller passes, as the JAX heads draw
-theirs from an explicit key.
+Bias-free linear, multi-linear stack with ReLU (+dropout), the BatchNorm
+MLP (``ProjectionHead``), the residual MLP head and the Switch-routed
+mixture-of-experts head (``MoEProjectionHead``).  Dropout is the identity
+at inference; in training (``train=True``) it draws its masks from the
+``torch.Generator`` the caller passes, as the JAX heads draw theirs from an
+explicit key.  A head's ``EXTRA_KNOBS`` are the ``projection.config`` keys
+the CLIP model passes on to it (the MoE head's ``n_experts``...).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import torch
 from torch import nn
 
 from ..config.registry import PROJECTIONS
-from ._params import dense, flax_layer_norm, norm
+from ._params import ParamGroup, dense, flax_layer_norm, lecun_normal, norm
+
+BN_EPSILON = 1e-5  # flax nn.BatchNorm's default
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -75,6 +78,64 @@ class MultiLinearHead(nn.Module):
         return x
 
 
+def batch_norm(width: int) -> ParamGroup:
+    """flax ``nn.BatchNorm``'s ``scale``/``bias`` parameters and its
+    ``batch_stats`` (``mean``/``var``) as buffers."""
+    group = norm(width)
+    group.register_buffer("mean", torch.zeros(width))
+    group.register_buffer("var", torch.ones(width))
+    return group
+
+
+def flax_batch_norm(x: torch.Tensor, bn: ParamGroup, train: bool) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` over the batch axis: batch statistics in train
+    mode (the fast variance E[x^2] - E[x]^2, clipped at 0), the stored
+    statistics otherwise.  The running statistics are never updated: the JAX
+    CLIP model discards the update (``mmgclip_tpu/models/clip.py:180-260``),
+    so stats stay at init."""
+    if train:
+        mean = x.mean(dim=0)
+        var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+    else:
+        mean, var = bn.mean, bn.var
+    mul = torch.rsqrt(var + BN_EPSILON) * bn.scale
+    return (x - mean) * mul + bn.bias
+
+
+@PROJECTIONS.register("ProjectionHead")
+class ProjectionHead(nn.Module):
+    """Dense -> BatchNorm -> ReLU (-> dropout) per hidden width, then a dense
+    output layer (reference: projection.py:64-83; unused by stock configs)."""
+
+    EXTRA_KNOBS = ("hidden_dims", "use_batchnorm")
+
+    def __init__(self, embedding_dim: int, projection_dim: int = 64, dropout: float = 0.1,
+                 generator: Optional[torch.Generator] = None,
+                 hidden_dims: Sequence[int] = (512, 256, 128), use_batchnorm: bool = True):
+        super().__init__()
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.hidden_dims = [int(d) for d in hidden_dims]
+        self.use_batchnorm = bool(use_batchnorm)
+        self.dropout = float(dropout)
+        fan_in = embedding_dim
+        for i, width in enumerate(self.hidden_dims):
+            setattr(self, f"hidden_{i}", dense(fan_in, width, g))
+            if self.use_batchnorm:
+                setattr(self, f"bn_{i}", batch_norm(width))
+            fan_in = width
+        self.out = dense(fan_in, int(projection_dim), g)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i in range(len(self.hidden_dims)):
+            layer = getattr(self, f"hidden_{i}")
+            x = x @ layer.kernel + layer.bias
+            if self.use_batchnorm:
+                x = flax_batch_norm(x, getattr(self, f"bn_{i}"), train)
+            x = dropout(torch.relu(x), self.dropout, train, generator)
+        return x @ self.out.kernel + self.out.bias
+
+
 @PROJECTIONS.register("MLPProjectionHead")
 class MLPProjectionHead(nn.Module):
     """Linear -> GELU -> Linear -> (dropout) -> residual -> LayerNorm."""
@@ -97,6 +158,56 @@ class MLPProjectionHead(nn.Module):
         x = dropout(x, self.dropout, train, generator)
         x = x + projected
         return flax_layer_norm(x, self.layer_norm.scale, self.layer_norm.bias)
+
+
+@PROJECTIONS.register("MoEProjectionHead")
+class MoEProjectionHead(nn.Module):
+    """Switch-style top-1 mixture of experts (the JAX package's extension;
+    ``mmgclip_tpu/models/projections.py:97-128``).
+
+    The router picks one expert per row; each expert takes at most
+    ``max(1, int(capacity_factor * n / n_experts))`` rows of a batch of n, in
+    row order, and rows past that capacity are dropped (zero output).  The
+    gate probability scales the expert's output so the router gets gradient.
+    Expert weights carry a leading ``[E, ...]`` axis.  The JAX head's
+    advisory load-balancing loss (sown, added to no objective) is not
+    computed."""
+
+    EXTRA_KNOBS = ("n_experts", "capacity_factor")
+
+    def __init__(self, embedding_dim: int, projection_dim: int = 512, dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None, n_experts: int = 8,
+                 capacity_factor: float = 2.0):
+        super().__init__()
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        h, e, p = embedding_dim, int(n_experts), int(projection_dim)
+        self.n_experts, self.capacity_factor, self.dropout = e, float(capacity_factor), float(dropout)
+        self.router = nn.Parameter(lecun_normal((h, e), h, g))
+        self.w_in = nn.Parameter(lecun_normal((e, h, p), h, g))
+        self.b_in = nn.Parameter(torch.zeros(e, p))
+        self.w_out = nn.Parameter(lecun_normal((e, p, p), p, g))
+        self.b_out = nn.Parameter(torch.zeros(e, p))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        n, e = x.shape[0], self.n_experts
+        capacity = max(1, int(self.capacity_factor * n / e))
+        probs = torch.softmax((x @ self.router).float(), dim=-1)
+        onehot = nn.functional.one_hot(torch.argmax(probs, dim=-1), e)  # [n, e]
+        # each row's place in its expert's queue: earlier rows of that expert
+        position = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=-1)
+        slots = torch.arange(capacity, device=x.device)
+        # a position past the capacity matches no slot: the row is dropped
+        dispatch = (onehot.to(x.dtype)[:, :, None]
+                    * (position[:, None] == slots[None, :]).to(x.dtype)[:, None, :])  # [n, e, c]
+        gate = (probs.to(x.dtype) * onehot.to(x.dtype)).sum(dim=-1)
+        combine = dispatch * gate[:, None, None]
+        expert_in = torch.einsum("nec,nh->ech", dispatch, x)
+        hidden = nn.functional.gelu(torch.einsum("ech,ehp->ecp", expert_in, self.w_in)
+                                    + self.b_in[:, None, :], approximate="none")
+        expert_out = torch.einsum("ecp,epq->ecq", hidden, self.w_out) + self.b_out[:, None, :]
+        y = torch.einsum("nec,ecq->nq", combine, expert_out)
+        return dropout(y, self.dropout, train, generator)
 
 
 def get_projection_head(name: str):

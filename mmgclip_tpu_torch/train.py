@@ -6,7 +6,11 @@ train.py:1-93).
 
 Composes the config (writing the run dir's ``.hydra`` snapshot), replays the
 seeded train/val/test splits, trains the CLIP heads over the frozen towers
-and, when ``dataset.eval.enum_classes`` is set, evaluates the test split.
+and, when ``dataset.eval.enum_classes`` is set and the eval dataset is the
+training one, evaluates the test split.  ``--config-name
+train_exam_reports_clf`` trains the exam-report family (``StudyReportDataset``;
+its eval dataset differs, so there is no test split).  On the card the fused
+epoch runs as a CUDA graph (``training/experiment.py``).
 Runs on the CUDA card unless ``--device`` names another device; with no card
 and no ``--device`` it raises before any work.
 """
@@ -29,6 +33,16 @@ from .utils.seeding import seeding
 def run(cfg, device=None, init_params: Optional[Dict] = None):
     """Train (and test) one experiment; returns the experiment object.
     ``init_params``: a JAX-layout trainable tree to start from."""
+    experiment = build_experiment(cfg, device=device, init_params=init_params)
+    if cfg.get_path("base.resume", False):
+        experiment.resume()
+    experiment.run()
+    return experiment
+
+
+def build_experiment(cfg, device=None, init_params: Optional[Dict] = None):
+    """The dataset, its seeded splits and loaders, and the experiment over
+    them, before any training."""
     seeding(int(cfg.base.seed))
 
     dataset = get_dataset(cfg.dataset.name)(config=cfg)
@@ -58,15 +72,11 @@ def run(cfg, device=None, init_params: Optional[Dict] = None):
         train_dataloader = dataloader_percentage(train_dataloader, cfg, collate_fn=dataset.collate_fn)
 
     experiment_class = create_experiment(cfg.experiments.config.experiment_name)
-    experiment = experiment_class(
+    return experiment_class(
         config=cfg, train_dataloader=train_dataloader, valid_dataloader=val_dataloader,
         test_dataloader=test_dataloader, tokenizer=dataset.tokenizer, device=device,
         init_params=init_params,
     )
-    if cfg.get_path("base.resume", False):
-        experiment.resume()
-    experiment.run()
-    return experiment
 
 
 def main(argv: Optional[List[str]] = None) -> int:

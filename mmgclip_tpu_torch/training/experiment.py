@@ -11,7 +11,13 @@ Rebuild of the reference train/validate/test life cycle
   every step there: the shuffled order is the JAX package's
   (``_epoch_order``, numpy ``default_rng((seed, epoch))``, wrap-around tail),
   the per-step losses accumulate on the device and the epoch reads back one
-  number;
+  number.  On the card it is the counterpart of the JAX ``lax.scan``: the
+  first ``GRAPH_WARMUP_STEPS`` steps of the run go eagerly on a side stream
+  (real steps), then one step (zero-grad, forward, loss, backward, AdamW)
+  is captured as a CUDA graph over a static batch-index buffer, and every
+  later step is one index copy and one replay.  The dropout generator is
+  registered with the graph, so replays draw what eager steps would and
+  checkpoints carry the advanced state; a capture that fails raises;
 * a sampler switches to the per-batch loop over the loader;
 * validation probes (malignancy / mass-shape / BI-RADS zero-shot AUCs, with
   the pooled probe prompts cached) match the reference's metric set.
@@ -44,6 +50,9 @@ from ..utils.tb import ScalarWriter
 from .checkpoint import load_checkpoint
 from .early_stopping import EarlyStopper
 from .optim import create_optimizer, create_scheduler, set_learning_rate
+
+
+GRAPH_WARMUP_STEPS = 3  # eager steps before the capture (real steps of the run)
 
 
 def _base_dataset(split):
@@ -159,6 +168,11 @@ class ClassifierExperiment:
 
         self._fused = bool(config.get_path("base.fused_epoch", True)) and train_dataloader is not None
         self._feats_bank = None  # built on the first fused epoch
+        # the fused epoch as a CUDA graph (on the card; ``use_cuda_graph =
+        # False`` keeps it eager there too)
+        self.use_cuda_graph = self.device.type == "cuda"
+        self._graph = self._graph_idx = None
+        self._warm_steps = 0
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -237,9 +251,27 @@ class ClassifierExperiment:
         self._text2_train_bank = (self._impression_bank[dev_idx]
                                   if self._impression_bank is not None else None)
 
+    def _bank_step(self, idx: torch.Tensor) -> None:
+        """One train step on the bank rows ``idx``; its loss adds to the epoch total."""
+        text2 = self._text2_train_bank[idx] if self._text2_train_bank is not None else None
+        self._epoch_total.add_(
+            self._train_step(self._feats_bank[idx], self._text_train_bank[idx], text2))
+
+    def _capture_step(self, bs: int) -> None:
+        """Capture ``_bank_step`` over a static index buffer as a CUDA graph.
+        Failure raises: there is no eager fallback on the card."""
+        self._graph_idx = torch.zeros(bs, dtype=torch.long, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph):
+            self._bank_step(self._graph_idx)
+        self._graph = graph
+        logger.info(f"Captured the train step as a CUDA graph after {self._warm_steps} eager steps.")
+
     def _fused_epoch(self) -> float:
         if self._feats_bank is None:
             self._build_fused_epoch()
+            self._epoch_total = torch.zeros((), dtype=torch.float32, device=self.device)
         n = len(self._train_indices)
         bs = self.train_dataloader.batch_size
         rng = np.random.default_rng((int(self.config.base.seed), self.current_epoch))
@@ -252,12 +284,27 @@ class ClassifierExperiment:
         if cuda:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for step in range(steps):
-            idx = batch_idx[step]
-            text2 = self._text2_train_bank[idx] if self._text2_train_bank is not None else None
-            total += self._train_step(self._feats_bank[idx], self._text_train_bank[idx], text2)
-        mean_loss = float((total / steps).item())  # the epoch's one read back
+        self._epoch_total.zero_()
+        if not self.use_cuda_graph:
+            for step in range(steps):
+                self._bank_step(batch_idx[step])
+        else:
+            warm = min(steps, max(0, GRAPH_WARMUP_STEPS - self._warm_steps))
+            if warm:  # before the capture, on a side stream
+                main = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(device=self.device)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    for step in range(warm):
+                        self._bank_step(batch_idx[step])
+                main.wait_stream(side)
+                self._warm_steps += warm
+            for step in range(warm, steps):
+                if self._graph is None:
+                    self._capture_step(bs)
+                self._graph_idx.copy_(batch_idx[step])
+                self._graph.replay()
+        mean_loss = float((self._epoch_total / steps).item())  # the epoch's one read back
         if cuda:
             end.record()
             end.synchronize()

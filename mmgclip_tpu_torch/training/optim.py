@@ -8,7 +8,9 @@ optax's: the moments ``(1 - b)·g^k + b·m``, bias correction by
 leaf, all scaled by ``-lr``.  The rate and the decay are float32 scalars on
 the parameters' device, so ``set_learning_rate`` changes the rate between
 epochs without a host read (reference: ClassifierExperiment.py:74-82,
-126; scheduler/warmup_cosine.py:8-61).
+126; scheduler/warmup_cosine.py:8-61).  Every state tensor is updated in
+place, so a CUDA graph captured over ``step`` replays against the live
+moments, count and rate.
 """
 
 from __future__ import annotations
@@ -54,9 +56,10 @@ class AdamW:
             if not self.trainable[name]:
                 continue
             g = p.grad if p.grad is not None else torch.zeros_like(p)
-            mu = (1 - self.b1) * g + self.b1 * self.mu[name]
-            nu = (1 - self.b2) * (g * g) + self.b2 * self.nu[name]
-            self.mu[name], self.nu[name] = mu, nu
+            # in place: a captured CUDA graph keeps reading these buffers
+            mu, nu = self.mu[name], self.nu[name]
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + h["weight_decay"] * p
             p.add_(update * -h["learning_rate"])
 
@@ -75,7 +78,7 @@ class AdamW:
                 "nu": {k: host(v) for k, v in self.nu.items()}}
 
     def load_state_dict(self, state: Dict) -> None:
-        device = self.count.device
+        """Copies into the live tensors (a captured graph reads those)."""
         self.count.fill_(int(state["count"]))
         for key, value in state["hyperparams"].items():
             self.hyperparams[key].fill_(float(value))
@@ -84,7 +87,11 @@ class AdamW:
             if set(state[slot]) != set(target):
                 raise KeyError(f"optimizer state {slot} keys {sorted(state[slot])} != {sorted(target)}")
             for key, value in state[slot].items():
-                target[key] = torch.as_tensor(np.asarray(value), device=device).to(target[key].dtype)
+                value = torch.as_tensor(np.asarray(value))
+                if tuple(value.shape) != tuple(target[key].shape):
+                    raise ValueError(f"optimizer state {slot}.{key}: shape {tuple(value.shape)} "
+                                     f"!= {tuple(target[key].shape)}")
+                target[key].copy_(value)
 
 
 def create_optimizer(params: Dict[str, torch.nn.Parameter], learning_rate: float,

@@ -10,14 +10,16 @@ mapping is by path: the flax path ``stage_0/dwconv_kernel`` is the
   of the JAX package), stem, downsamples and head;
 * BERT's ``[L, H, 3, heads, dh]`` qkv layout and its other stacked tensors;
 * the trainable CLIP tree (``image_projection``, ``text_projection``,
-  ``logit_scale``).
+  ``logit_scale``), every head included: the BatchNorm ``ProjectionHead``'s
+  ``batch_stats`` go to its buffers (``load_head_state``), the MoE head's
+  ``[E, ...]`` expert stacks by name.
 
 Every key, shape and count must match: a mismatch raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -57,15 +59,35 @@ def load_flax_tree(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
 
 
 @torch.no_grad()
-def load_clip_params(model: nn.Module, trainable: Dict[str, Any]) -> nn.Module:
+def load_head_state(module: nn.Module, collections: Dict[str, Any]) -> nn.Module:
+    """A flax head's non-parameter collections (``{"batch_stats": {"bn_0":
+    {"mean", "var"}, ...}}``) -> the module's buffers of the same paths."""
+    flat = flatten_tree(collections.get("batch_stats", {}))
+    buffers = dict(module.named_buffers())
+    if set(flat) != set(buffers) or set(collections) - {"batch_stats"}:
+        raise KeyError(f"{type(module).__name__}: head state {sorted(flat)} (collections "
+                       f"{sorted(collections)}) does not match its buffers {sorted(buffers)}")
+    for name, buffer in buffers.items():
+        if tuple(flat[name].shape) != tuple(buffer.shape):
+            raise ValueError(f"{name}: tree has shape {flat[name].shape}, module {tuple(buffer.shape)}")
+        buffer.copy_(torch.tensor(flat[name], dtype=buffer.dtype))
+    return module
+
+
+@torch.no_grad()
+def load_clip_params(model: nn.Module, trainable: Dict[str, Any],
+                     head_state: Optional[Dict[str, Any]] = None) -> nn.Module:
     """The JAX ``MMGCLIP.trainable_params`` tree -> ``MMGCLIP``'s heads and
-    logit scale."""
+    logit scale, in place.  ``head_state``: the JAX model's ``_head_state``
+    (``{"image_projection": {"batch_stats": ...}, ...}``)."""
     expected = {"logit_scale"}
     for name in ("image_projection", "text_projection"):
         head = getattr(model, name)
         if head is not None:
             expected.add(name)
             load_flax_tree(head, trainable[name])
+            if head_state is not None:
+                load_head_state(head, head_state.get(name, {}))
     if set(trainable) != expected:
         raise KeyError(f"trainable tree keys {sorted(trainable)} != {sorted(expected)}")
     model.logit_scale.copy_(torch.as_tensor(np.array(trainable["logit_scale"], np.float32)))

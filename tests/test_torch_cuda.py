@@ -16,7 +16,11 @@ version (a rounding flip moves a value by one quantisation step); the ring
 all-gather bit-equal (it copies), and the global losses through it within
 1e-6 relative (loss) and 1e-5 (gradients) of the single-device losses; the
 product gates of ``chip_smoke.py`` phase 15 (zero-shot AUC within 0.005 and
-byte-identical reports for every speed knob of the tower).
+byte-identical reports for every speed knob of the tower); the fused epoch
+as a CUDA graph against the eager epoch, and a resume after the capture
+against an unbroken run, within 1e-6 relative (losses and params); the exam
+family's ``encode_studies`` launching the store preset's kernels per
+program call.
 """
 
 import numpy as np
@@ -584,3 +588,97 @@ def test_report_paths_hold_on_the_card(cuda_device, tmp_path):
         "dataloader.test.batch_size=4", "scheduler.config.epochs=1"]), device=cuda_device)
     out = chip_smoke.phase_report_paths(cuda_device, str(tmp_path), run_dir, tree)
     assert {"image", "exam", "evaluate_cnn", "serve_ms"} <= set(out["times"])
+
+
+# ----------------------------------------------------------------------
+# the fused epoch as a CUDA graph, and the exam family's encode path
+
+TINY_TEXT = ("networks.text_encoder.config={hidden_size: 64, num_hidden_layers: 2, "
+             "num_attention_heads: 4, intermediate_size: 128}")
+
+
+def small_config(family, root, name, extra=()):
+    """A reduced-width config of either training family, dropout on."""
+    import chip_smoke
+
+    run_dir = str(root / name)
+    if family == "binary":
+        tree = chip_smoke.write_train_tree(str(root / f"{name}_tree"), 24)
+        return chip_smoke.train_config(run_dir, tree, [
+            TINY_TEXT, "dataloader.train.batch_size=8", "dataloader.valid.batch_size=4",
+            "dataloader.test.batch_size=4", *extra])
+    reports_csv, gtr_csv = chip_smoke.write_exam_training(str(root / f"{name}_data"), [], 64)
+    return chip_smoke.exam_config(run_dir, reports_csv, gtr_csv, [
+        TINY_TEXT, "loss=mmgclip", "dataloader.train.batch_size=8", "dataloader.valid.batch_size=4",
+        *extra])
+
+
+@pytest.mark.parametrize("family", ["binary", "exam"])
+def test_graphed_epoch_matches_the_eager_epoch(cuda_device, tmp_path, family):
+    """``chip_smoke.graph_vs_eager``: two epochs graphed (the first with its
+    eager warm-up steps and the capture) against two eager epochs from the
+    same seeded state, dropout on: losses and params within 1e-6 relative."""
+    import chip_smoke
+
+    out = chip_smoke.graph_vs_eager(cuda_device, small_config(family, tmp_path, "run"), family)
+    assert len(out["graph_ms"]) == len(out["eager_ms"]) == 2
+
+
+def test_resume_after_capture_matches_an_unbroken_run(cuda_device, tmp_path):
+    """A run stopped after two epochs (its graph captured), its live state
+    scrambled, then ``resume()`` from its best checkpoint: the later epochs
+    replay the same graph against the restored tensors and end where an
+    unbroken run ends (losses and params within 1e-6 relative; dropout on,
+    the generator restored from the checkpoint)."""
+    from mmgclip_tpu_torch.train import build_experiment
+    from mmgclip_tpu_torch.training.checkpoint import load_checkpoint
+    from mmgclip_tpu_torch.utils.tb import ScalarWriter, read_scalars
+    from mmgclip_tpu_torch.weights import clip_params_tree, flatten_tree
+
+    extra = ["dataloader.valid.shuffle=false"]
+    straight_cfg = small_config("binary", tmp_path, "straight", extra)
+    straight = build_experiment(straight_cfg, device=cuda_device)
+    straight.run()
+
+    cfg = small_config("binary", tmp_path, "broken", extra)
+    broken = build_experiment(cfg, device=cuda_device)
+    cfg.scheduler.config.epochs = 2  # stop early; the schedule keeps its 3-epoch total
+    broken.run()
+    graph = broken._graph
+    best = load_checkpoint(broken.ckp_path)["epoch"]
+    assert graph is not None and best in (0, 1)
+    with torch.no_grad():
+        for p in broken.params.values():
+            p.add_(1.0)
+        for slot in (broken.optimizer.mu, broken.optimizer.nu):
+            for t in slot.values():
+                t.zero_()
+        broken.optimizer.count.fill_(0)
+        broken.optimizer.hyperparams["weight_decay"].fill_(0.5)
+    broken.generator.manual_seed(123)
+    cfg.scheduler.config.epochs = 3
+    assert broken.resume() and broken.current_epoch == best + 1
+    broken.writer = ScalarWriter(cfg.base.tensorboard_export_dir)  # run() closed it
+    broken.run()
+    assert broken._graph is graph  # no second capture: the old graph saw the restored state
+    want = read_scalars(straight_cfg.base.tensorboard_export_dir)
+    got = read_scalars(cfg.base.tensorboard_export_dir)
+    for tag in ("loss/train", "loss/val"):
+        np.testing.assert_allclose(got[tag], want[tag], rtol=1e-6, err_msg=tag)
+    ours, theirs = (flatten_tree(clip_params_tree(e.model)) for e in (broken, straight))
+    for key, value in theirs.items():
+        np.testing.assert_allclose(ours[key], value, rtol=1e-6, atol=1e-7, err_msg=key)
+
+
+def test_encode_studies_launches_the_store_kernels(cuda_device, tmp_path):
+    """``chip_smoke.exam_encode`` at a small size with ConvNeXt-Tiny in the
+    feature-store preset: 22 launches (1 stem, 3 downsamples, 18 int8
+    blocks) per program call, one call per view shape; the corrupt study in
+    ``failed.txt``; the study vectors against the engine's views and the
+    plain tower."""
+    import chip_smoke
+
+    table, vectors, times = chip_smoke.exam_encode(
+        cuda_device, str(tmp_path / "exam"), "card test", ((256, 208), (250, 200)),
+        chip_smoke.REPORT_TOWER, [TINY_TEXT], 2)
+    assert len(table) == 2 and vectors.shape == (2, 768) and times["encode_s"] > 0

@@ -9,7 +9,9 @@ try) imports every port module, runs the micro serving path on the CPU,
 trains, tests and re-evaluates a tiny run through the ``train`` and
 ``evaluate_clip`` entry points, generates its report for one image through
 ``generate_report``, evaluates the tower's classifier head through
-``evaluate_cnn`` and answers a ping on the unix-socket server.
+``evaluate_cnn``, answers a ping on the unix-socket server, and builds the
+exam family's supervision (``StudyReportDataset`` over a CSV the port
+writes, the report pipeline's ``post_process_translated_report``).
 """
 
 import ast
@@ -23,7 +25,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "mmgclip_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmgclip_tpu", "yaml", "msgpack", "PIL",
-             "pandas", "transformers", "triton", "ninja")
+             "pandas", "nltk", "transformers", "triton", "ninja")
 BLOCKED = FORBIDDEN + ("matplotlib", "tensorboard")
 
 
@@ -124,6 +126,30 @@ def test_port_runs_with_the_missing_packages_blocked(tmp_path):
         loop.call_soon_threadsafe(box[0].cancel)
         thread.join(60)
         engine.close()
+        from mmgclip_tpu_torch.config import Config
+        from mmgclip_tpu_torch.data.csv_table import Table, write_csv
+        from mmgclip_tpu_torch.data.datasets import StudyReportDataset
+        from mmgclip_tpu_torch.data.reports import post_process_translated_report
+        exam = os.path.join({str(tmp_path)!r}, "exam")
+        os.makedirs(exam)
+        labels = str({{"birads": "3", "masses": {{"shapes": "oval"}}}})
+        rows = []
+        for i in range(2):
+            path = os.path.join(exam, f"{{i}}.npy")
+            np.save(path, np.full(768, i, np.float32))
+            rows.append({{"patient_id": f"0220000{{i}}", "study_id": "st02", "is_malig": str(i),
+                         "labels": labels, "study_path": path, "image_impression": "Imp.",
+                         "image_description": "BI-RADS 3: a mass."}})
+        write_csv(os.path.join(exam, "final.csv"), Table.from_rows(rows))
+        ds = StudyReportDataset(Config({{
+            "base": {{"seed": 1, "export_dir": exam}},
+            "dataset": {{"config": {{"final_reports_dataset_path": os.path.join(exam, "final.csv"),
+                                    "gtr_prompt_generation": False}}}},
+            "tokenizer": {{"config": {{"tokenizer_name": "bert-base-uncased", "sequence_length": 16}}}}}}))
+        assert len(ds) == 2 and ds._tokens["input_ids"].shape == (2, 16), ds.rows
+        post = post_process_translated_report(
+            ds.final_reports_dataset, Config({{"dataset": {{"config": {{"base_dataset_path": exam}}}}}}))
+        assert post.rows[0]["image_description"] == "BIRADS 3  a mass.", post.rows[0]
         blocked = [m for m in {BLOCKED!r} if sys.modules.get(m) is not None]
         assert not blocked, blocked
         print("OK")
@@ -167,6 +193,7 @@ def test_block_sweep_fails_without_cuda_and_writes_nothing(tmp_path):
     ("train", []),
     ("evaluate_clip", ["--experiment_path", "/nonexistent", "--run_name", "x"]),
     ("encode_images", []),
+    ("encode_studies", []),
     ("evaluate_cnn", []),
     ("generate_report", ["--experiment_path", "/nonexistent", "--image_id", "p0200000002cl"]),
     ("serve", ["--experiment_path", "/nonexistent", "--unix", "/nonexistent.sock"]),

@@ -20,7 +20,7 @@ import pytest
 import torch
 from flax import serialization
 
-from fixtures import build_image_label_tree
+from fixtures import build_image_label_tree, build_study_report_fixture
 from mmgclip_tpu.config import compose as jax_compose
 from mmgclip_tpu.data import datasets as jax_datasets
 from mmgclip_tpu.data import loader as jax_loader
@@ -293,9 +293,19 @@ def test_image_label_dataset_is_bit_equal(label_tree, mode):
         np.testing.assert_array_equal(left.indices, right.indices)
 
 
-def test_study_report_dataset_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        datasets.get_dataset("StudyReportDataset")(config=_cfg())
+def test_study_report_dataset_waits_for_its_slice(tmp_path):
+    """Its slice has landed: the registered ``StudyReportDataset`` builds the
+    JAX package's supervision (``tests/test_torch_exam_dataset.py`` holds it
+    in every GTR mode)."""
+    reports_csv, gtr_csv, _features = build_study_report_fixture(str(tmp_path), n_studies=6)
+    overrides = [f"dataset.config.final_reports_dataset_path={reports_csv}",
+                 f"dataset.config.gt_path={gtr_csv}"]
+    ours = datasets.get_dataset("StudyReportDataset")(
+        config=compose(CONFIGS, "train_exam_reports_clf", overrides, run_dir=str(tmp_path / "ours")))
+    theirs = jax_datasets.get_dataset("StudyReportDataset")(
+        config=jax_compose(CONFIGS, "train_exam_reports_clf", overrides, run_dir=str(tmp_path / "jax")))
+    assert [row["image_description"] for row in ours.rows] == \
+        theirs.final_reports_dataset["image_description"].tolist()
 
 
 def test_metrics_and_bootstrap_ci_match_jax():
