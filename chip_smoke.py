@@ -34,10 +34,17 @@ the unix-socket server answering 36 concurrent clients as ``handle`` does.
 Phase 17 drives the exam-report family: ``encode_studies`` over studies of
 four full-field views in the feature-store preset (study vectors against the
 serving engine's views and the plain tower), ``train_exam_reports_clf`` at
-BERT-base width under ``CLIPLoss`` and ``MMGCLIPLoss``, ``PromptClassifier``
+BERT-base width under ``CLIPLoss`` and ``MMGCLIPLoss`` with JAX's dropout
+masks (the threefry and dropout kernels, phase 5b), ``PromptClassifier``
 against the engine and the BatchNorm and MoE heads on the card against the
 CPU.  Phases 14 and 17 hold the fused epoch captured as a CUDA graph against
-the eager epoch from the same state.
+the eager epoch from the same state.  Phase 18 drives the BioGPT text-tower
+family at full width (24 x 1024, 16 heads, vocab 42384, seeded):
+``train --config-name train_binary_class_clf networks=clip_convnext_biogpt
+tokenizer=biogpt`` (Moses+BPE ids, the text bank, 3 epochs, ``test()``),
+``evaluate_clip``, ``generate_report`` through the feature-store preset and
+``serve --once`` ``classify``, and the tower on the card against the CPU at
+tiny width.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks what comes out, and times every kernel beside its plain
@@ -45,9 +52,10 @@ version, its bound and (where one exists) the one PyTorch call that computes
 the same function, plus the encode programs, ``extract()`` (split into
 decode, device and write seconds), PNG decode (compiled and plain unfilter),
 the global loss, the text bank, the train step, ``test()``, ``generate_report``,
-the socket server's ms per request, studies/s of ``encode_studies`` and the
-graphed and eager train steps.  The times phase keeps its number, 11, and
-runs after phases 12-17.
+the socket server's ms per request, studies/s of ``encode_studies``, the
+graphed and eager train steps and the BioGPT run's bank, step, ``test()`` and
+report seconds.  The times phase keeps its number, 11, and runs after phases
+12-18.
 
 Imports nothing of JAX or of ``mmgclip_tpu``.  Exits non-zero, without the
 result line, when CUDA is unavailable or any phase fails.  The last line is
@@ -76,14 +84,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks (NVIDIA data sheets, dense): HBM bytes/s, fp32 (non-tensor)
 # and tf32 / bf16 / int8 (tensor core) operations/s, keyed by the name
-# nvidia-smi reports.
+# nvidia-smi reports.  "int32" (the integer ALU, which the data sheets do not
+# list) is SMs x 64 int32 lanes x the boost clock: 132 x 64 x 1.98 GHz (SXM5),
+# 114 x 64 x 1.755 GHz (PCIe), 132 x 64 x 1.785 GHz (NVL).
 PEAKS = {
     "H100 80GB HBM3": {"variant": "H100 SXM5", "bytes": 3.35e12, "fp32": 67e12, "tf32": 495e12,
-                       "bf16": 989e12, "int8": 1979e12},
+                       "bf16": 989e12, "int8": 1979e12, "int32": 132 * 64 * 1.98e9},
     "H100 PCIe": {"variant": "H100 PCIe", "bytes": 2.0e12, "fp32": 51e12, "tf32": 378e12,
-                  "bf16": 756e12, "int8": 1513e12},
+                  "bf16": 756e12, "int8": 1513e12, "int32": 114 * 64 * 1.755e9},
     "H100 NVL": {"variant": "H100 NVL", "bytes": 3.9e12, "fp32": 60e12, "tf32": 417.5e12,
-                 "bf16": 835e12, "int8": 1671e12},
+                 "bf16": 835e12, "int8": 1671e12, "int32": 132 * 64 * 1.785e9},
 }
 FP32_REL_TOL = 1e-4           # kernel 1 vs plain, fp32 with TF32 off
 BF16_REL_TOL = 2.0 ** -6      # both kernels in bf16: two bf16 steps of the largest value
@@ -483,6 +493,123 @@ def phase_glue_parity(device, gen):
                     raise AssertionError(f"{label}: rel {rel} > {tol}")
                 worst[(kind, shape, dtype)] = max(err, worst.get((kind, shape, dtype), 0.0))
     return worst
+
+
+# ----------------------------------------------------------------------
+# phase 5b: JAX's threefry and flax's dropout (port-only kernel)
+DROPOUT_SHAPES = ((64, 768), (4096, 4096))  # the exam head's hidden batch; a large draw
+DROPOUT_RATES = (0.2, 0.5)                   # train_exam_reports_clf's; the binary presets'
+# the integer and float operations of one element of mmg_dropout: threefry's
+# 2 + 5 x (4 x (add, rotate, xor) + 2 key adds) = 72, then xor, shift, or,
+# subtract, compare, divide, select
+DROPOUT_OPS_PER_ELEMENT = 79
+THREEFRY_OPS_PER_COUNTER = 72
+
+
+def dropout_inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return x, g
+
+
+def phase_dropout_parity(device):
+    """``mmg_dropout`` and ``mmg_threefry2x32`` against the plain version on
+    the CPU (``utils/prng.py``): masks, outputs and gradients bit-equal at
+    ``DROPOUT_SHAPES``, keys of ``split`` and ``fold_in`` bit-equal.
+    -> the largest absolute difference (0.0)."""
+    from mmgclip_tpu_torch.ops import dropout as dropout_op
+    from mmgclip_tpu_torch.utils import prng
+
+    key = prng.split(prng.key(3), 3)[0]
+    for n in (2, 3):
+        if not torch.equal(dropout_op.split(key.to(device), n).cpu(), prng.split(key, n)):
+            raise AssertionError(f"threefry2x32 split({n}) differs from jax.random.split's")
+    fold = prng.make_rng_constant(["Dropout_0"])
+    if not torch.equal(dropout_op.fold_in(key.to(device), fold).cpu(), prng.fold_in(key, fold)):
+        raise AssertionError("threefry2x32 fold_in differs from jax.random.fold_in's")
+    worst = 0.0
+    for shape in DROPOUT_SHAPES:
+        x, g = dropout_inputs(shape)
+        for rate in DROPOUT_RATES:
+            out, mask = dropout_op.launch_dropout(x.to(device), key.to(device), fold, 1.0 - rate)
+            ref, ref_mask = dropout_op.plain_dropout(x, key, fold, 1.0 - rate)
+            xc, xg = x.clone().requires_grad_(True), x.to(device).requires_grad_(True)
+            dropout_op.dropout(xc, key, fold, rate).backward(g)
+            dropout_op.dropout(xg, key.to(device), fold, rate).backward(g.to(device))
+            err = max((out.cpu() - ref).abs().max().item(), (xg.grad.cpu() - xc.grad).abs().max().item())
+            equal = (torch.equal(mask.cpu().bool(), ref_mask) and torch.equal(out.cpu(), ref)
+                     and torch.equal(xg.grad.cpu(), xc.grad))
+            log(f"    dropout {shape} rate {rate}: mask, output and gradient bit-equal to the plain "
+                f"version on the CPU: {equal} (kept {ref_mask.float().mean().item():.4f})")
+            if not equal:
+                raise AssertionError(f"dropout {shape} rate {rate} differs from its plain version: {err}")
+            worst = max(worst, err)
+    log("    threefry2x32 split(2), split(3), fold_in: bit-equal to jax.random's (plain version)")
+    return worst
+
+
+def train_launches(experiment):
+    """The launches a fused training run makes through the kernel wrappers on
+    the card: every eager step, and the one step the CUDA graph records, split
+    the trainer's key and the step key (two threefry2x32) and draw each
+    Dropout site once; replays count none."""
+    if experiment.use_cuda_graph:
+        traced = experiment._warm_steps + (experiment._graph is not None)
+    else:
+        traced = sum(experiment.timings["epoch_steps"])
+    model = experiment.model
+    heads = [model.image_projection, model.text_projection]
+    if experiment._impression_bank is not None:
+        heads.append(model.text_projection)  # the T2T branch
+    sites = sum(len(h._folds) for h in heads if h is not None and getattr(h, "dropout", 0.0))
+    expected = {"threefry2x32": 2 * traced}
+    if sites:
+        expected["dropout"] = traced * sites
+    return expected
+
+
+def timing_dropout(device, peaks, launches, err):
+    """``mmg_dropout`` and ``mmg_threefry2x32`` beside the plain version on
+    the card (the same torch ops on CUDA tensors) and their bounds: device
+    time per call of back-to-back calls.  Integer operations bound at the
+    ``int32`` rate of ``PEAKS``.  -> the two ``kernels`` entries."""
+    from mmgclip_tpu_torch.ops import dropout as dropout_op
+    from mmgclip_tpu_torch.utils import prng
+
+    key = prng.key(3).to(device)
+    fold = prng.make_rng_constant(["Dropout_0"])
+    entries = {}
+    for shape in DROPOUT_SHAPES:
+        x = dropout_inputs(shape)[0].to(device)
+        n = x.numel()
+        ms = device_ms(lambda: dropout_op.launch_dropout(x, key, fold, 0.8))
+        plain = chained_ms(lambda: dropout_op.plain_dropout(x, key, fold, 0.8))
+        moved = n * (4 + 4 + 1) + 16
+        bms, by = max((moved / peaks["bytes"] * 1e3, "bytes"),
+                      (n * DROPOUT_OPS_PER_ELEMENT / peaks["int32"] * 1e3, "operations"))
+        log(f"    dropout {shape} fp32 rate 0.2: kernel {ms:.5f} ms, plain {plain:.5f} ms (the "
+            f"torch ops on the card, chained calls), bound {bms:.5f} ms ({by}); device time per call")
+        if shape == DROPOUT_SHAPES[0]:
+            entries["dropout"] = {
+                "name": "dropout", "route": "cuda", "source": "mmgclip_tpu_torch/csrc/threefry_dropout.cu",
+                "replaces": None, "launches": launches.get("dropout", 0), "max_abs_err": err,
+                "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "work": f"flax nn.Dropout(0.2) of the exam head's {list(shape)} fp32 batch "
+                        "(threefry bits, uniform, mask, x / keep); port-only kernel; device time"}
+    ms = device_ms(lambda: dropout_op.launch_threefry2x32(key, 0, 3))
+    plain = chained_ms(lambda: prng.split(key, 3))
+    bms = max(((16 + 48) / peaks["bytes"] * 1e3, "bytes"),
+              (3 * THREEFRY_OPS_PER_COUNTER / peaks["int32"] * 1e3, "operations"))
+    log(f"    threefry2x32 split(key, 3): kernel {ms:.5f} ms, plain {plain:.5f} ms (chained calls), "
+        f"bound {bms[0]:.7f} ms ({bms[1]}); device time per call")
+    entries["threefry2x32"] = {
+        "name": "threefry2x32", "route": "cuda", "source": "mmgclip_tpu_torch/csrc/threefry_dropout.cu",
+        "replaces": None, "launches": launches.get("threefry2x32", 0), "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain, "bound_ms": bms[0], "bound_by": bms[1], "library_ms": None,
+        "work": "jax.random.split(key, 3), the step key into the three heads' keys; port-only "
+                "kernel; device time"}
+    return [entries["dropout"], entries["threefry2x32"]]
 
 
 def write_store_tree(root):
@@ -1190,7 +1317,8 @@ def phase_training(device, tmp, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    check_counts("training + test() (the JAX trainer's path launches no kernel)", counts, {})
+    check_counts("training + test() (the key splits of each traced step; 1xLinear512 has no "
+                 "Dropout)", counts, train_launches(experiment))
     text = experiment.model.bert_config
     scalars = read_scalars(cfg.base.tensorboard_export_dir)
     train_loss, val_loss = scalars["loss/train"], scalars["loss/val"]
@@ -1929,8 +2057,10 @@ def phase_exam(device, tmp, smi, shapes=FFDM_SHAPES, tower=REPORT_TOWER, text=No
     ``failed.txt`` and out of ``final_reports_dataset.csv``.
     (b) ``train.run`` on ``train_exam_reports_clf`` (BERT-base, 256 tokens,
     ``2xLinear512``, dropout 0.2, batch 64, GTR prompts) over ``n_train``
-    studies, under ``CLIPLoss`` and ``MMGCLIPLoss``: finite validation AUCs;
-    the fused epoch graphed against eager; card against CPU at reduced width.
+    studies, under ``CLIPLoss`` and ``MMGCLIPLoss``: finite validation AUCs,
+    the key splits and Dropout draws launched per traced step
+    (``train_launches``); the fused epoch graphed against eager; card against
+    CPU at reduced width with dropout 0.2 (the same masks on both).
     (c) ``PromptClassifier`` against the engine's ``classify``, and the
     ``ProjectionHead`` and ``moe512`` heads training on the card against the
     CPU.  ``text`` overrides the BERT config everywhere (the CPU rehearsal).
@@ -1962,8 +2092,10 @@ def phase_exam(device, tmp, smi, shapes=FFDM_SHAPES, tower=REPORT_TOWER, text=No
         if on_card:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        check_counts(f"train_exam_reports_clf ({loss}; the JAX trainer's path launches no kernel)",
-                     launch_counts(), {})
+        counts = launch_counts()
+        check_counts(f"train_exam_reports_clf ({loss}; the key splits and Dropout draws of each "
+                     "traced step)", counts, train_launches(experiment))
+        times.setdefault("train_launches", counts)
         scalars = read_scalars(cfg.base.tensorboard_export_dir)
         aucs = {tag: scalars[tag] for tag in ("auc/val/malig", "auc/val/shapes", "auc/val/birads")}
         losses = scalars["loss/train"] + scalars["loss/val"]
@@ -1989,8 +2121,15 @@ def phase_exam(device, tmp, smi, shapes=FFDM_SHAPES, tower=REPORT_TOWER, text=No
     times["graph"] = graph_vs_eager(device, exam_config(
         os.path.join(root, "graph_check"), reports_csv, gtr_csv, ["loss=mmgclip", *train_extra]),
         "train_exam_reports_clf (MMGCLIPLoss) at full width")
+    if times["graph"]["graph_ms"]:
+        log(f"    graphed exam step with JAX's dropout masks (the threefry and dropout kernels in "
+            f"the graph): {times['graph']['graph_ms'][-1]:.4f} ms (CUDA events, last epoch; {smi})")
 
-    # reduced width: the templated texts of the full-width runs, except for
+    # reduced width, dropout as configured (0.2: card and CPU draw the same
+    # masks) except for moe512, whose run at dropout 0.2 reaches a row whose
+    # top-1 route ties within rounding (its second validation loss parts by
+    # 3.7e-2 while every train loss agrees to 2.4e-7), so it keeps dropout 0:
+    # the templated texts of the full-width runs, except for
     # the BatchNorm head, which trains on seeded reports and impressions with
     # no GTR prompts: over rows that repeat a few templates its batch variance
     # E[x^2] - E[x]^2 cancels catastrophically, and the losses of an H100
@@ -2001,14 +2140,14 @@ def phase_exam(device, tmp, smi, shapes=FFDM_SHAPES, tower=REPORT_TOWER, text=No
     varied, _ = write_exam_training(os.path.join(root, "reduced_varied"), [], n_reduced, seed=1,
                                     varied=True)
     reduced = [f"networks.text_encoder.config={text or EXAM_TEXT_REDUCED}",
-               "networks.dropout.config.dropout=0.0", "dataloader.train.batch_size=8",
-               "dataloader.valid.batch_size=4"]
+               "dataloader.train.batch_size=8", "dataloader.valid.batch_size=4"]
     heads = {"2xLinear512": (templated, []),
              "ProjectionHead": (varied, ["projection.config.projection_name=ProjectionHead",
                                          "projection.config.output_projection_dimension=512",
                                          "dataset.config.gtr_prompt_generation=false",
                                          "scheduler.config.epochs=2"]),
-             "moe512": (templated, ["projection=moe512", "scheduler.config.epochs=2"])}
+             "moe512": (templated, ["projection=moe512", "scheduler.config.epochs=2",
+                                    "networks.dropout.config.dropout=0.0"])}
     for label, loss, head in (("clip", "clip", "2xLinear512"), ("mmgclip", "mmgclip", "2xLinear512"),
                               ("ProjectionHead", "mmgclip", "ProjectionHead"),
                               ("moe512", "mmgclip", "moe512")):
@@ -2021,7 +2160,8 @@ def phase_exam(device, tmp, smi, shapes=FFDM_SHAPES, tower=REPORT_TOWER, text=No
             scalars = read_scalars(cfg.base.tensorboard_export_dir)
             got[dev] = np.asarray(scalars["loss/train"] + scalars["loss/val"])
         rel = np.abs(got[device.type] - got["cpu"]) / np.abs(got["cpu"])
-        log(f"    reduced width ({label}, {loss}, dropout 0): {device.type} {got[device.type].tolist()} vs "
+        log(f"    reduced width ({label}, {loss}, dropout {cfg.networks.dropout.config.dropout}): "
+            f"{device.type} {got[device.type].tolist()} vs "
             f"CPU {got['cpu'].tolist()}: max rel {rel.max():.3e} (tol {TRAIN_LOSS_REL_TOL:.0e})")
         if not (np.isfinite(rel).all() and rel.max() <= TRAIN_LOSS_REL_TOL):
             raise AssertionError(f"exam training {label}: {device.type} vs CPU losses differ by {rel}")
@@ -2043,6 +2183,132 @@ def phase_exam(device, tmp, smi, shapes=FFDM_SHAPES, tower=REPORT_TOWER, text=No
     log(f"    PromptClassifier over the trained run ({device.type}): decisions "
         f"{out['similarities_argmax_per_image']} equal to InferenceEngine.classify, probabilities "
         f"within {diff:.2e} (tol {SERVE_PROB_TOL:.0e})")
+    return times
+
+
+# ----------------------------------------------------------------------
+# phase 18: the BioGPT text-tower family at full width
+GPT_TINY_ABS_TOL = 1e-5       # the tower at GPTConfig.tiny() width, card vs CPU, fp32 (TF32 off)
+
+
+def phase_biogpt(device, tmp, smi, tree, text=None, shapes=FFDM_SHAPES, tower=REPORT_TOWER,
+                 extra=()):
+    """``train --config-name train_binary_class_clf networks=clip_convnext_biogpt
+    tokenizer=biogpt`` through ``train.run`` on ``tree`` (phase 14's seeded
+    features): the ``CausalTextEncoder`` as configured (24 x 1024, 16 heads,
+    4096, vocab 42384; ``text`` overrides it, ``extra`` the batch sizes, for
+    the CPU rehearsal) from a
+    seeded init, the Moses+BPE text bank, 3 epochs, ``test()``; then
+    ``evaluate_clip`` of the stored run (results equal ``test()``'s),
+    ``generate_report`` for one full-field image through the feature-store
+    preset (the tower's kernels per view on the card), one ``serve --once``
+    ``classify``, and on the card the tower at ``GPTConfig.tiny()`` width
+    against the CPU within ``GPT_TINY_ABS_TOL``.  -> times."""
+    import contextlib
+    import io
+
+    from mmgclip_tpu_torch import serve
+    from mmgclip_tpu_torch.evaluate_clip import main as evaluate_main
+    from mmgclip_tpu_torch.models.gpt import CausalTextEncoder, GPTConfig
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.train import run
+    from mmgclip_tpu_torch.utils.tb import read_scalars
+
+    on_card = device.type == "cuda"
+    cpu_args = [] if on_card else ["--device", str(device)]
+    root = os.path.join(tmp, "biogpt")
+    os.makedirs(root)
+    run_dir = os.path.join(root, "run")
+    overrides = ["networks=clip_convnext_biogpt", "tokenizer=biogpt", *extra]
+    if text:
+        overrides.append(f"networks.text_encoder.config={text}")
+    cfg = train_config(run_dir, tree, overrides)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    experiment = run(cfg, device=device)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_counts("BioGPT training + test() (the key splits of each traced step; 1xLinear512 has "
+                 "no Dropout)", launch_counts(), train_launches(experiment))
+    text_tower = experiment.model.text_module
+    gpt = experiment.model.bert_config
+    if not isinstance(text_tower, CausalTextEncoder):
+        raise AssertionError(f"the text tower is {type(text_tower).__name__}, not CausalTextEncoder")
+    n_params = sum(p.numel() for p in text_tower.parameters())
+    scalars = read_scalars(cfg.base.tensorboard_export_dir)
+    train_loss, val_loss = scalars["loss/train"], scalars["loss/val"]
+    if not (np.isfinite(train_loss).all() and np.isfinite(val_loss).all() and len(train_loss) == 3):
+        raise AssertionError(f"BioGPT epoch losses {train_loss} / {val_loss}")
+    if not train_loss[-1] < train_loss[0]:
+        raise AssertionError(f"BioGPT train loss did not fall on separable data: {train_loss}")
+    with open(os.path.join(cfg.base.results_export_dir, "results.json")) as fh:
+        tested = json.load(fh)
+    steps, ms = experiment.timings["epoch_steps"], experiment.timings["epoch_device_ms"]
+    per_step = [m / n for m, n in zip(ms, steps)]
+    times = {"bank_s": experiment.timings["bank_s"], "test_s": experiment.timings["test_s"],
+             "step_ms": per_step, "run_s": wall}
+    results = tested["BenignMalignantDatasetLabels"]["zeroshot_label_prompt"]
+    log(f"    BioGPT {gpt.hidden_size}x{gpt.num_hidden_layers}x{gpt.num_attention_heads} "
+        f"({gpt.intermediate_size}, vocab {gpt.vocab_size}, {n_params / 1e6:.1f} M params, "
+        f"{n_params * 4 / 2**30:.2f} GiB fp32, seeded), tokenizer {experiment.tokenizer.name} "
+        f"(Moses+BPE, {experiment.tokenizer.vocab_size} ids): train loss {train_loss}, val loss "
+        f"{val_loss}, test() accuracy {results['accuracy']}, AUC CI mean {results.get('auc_ci_mean')}")
+    log(f"    times ({smi}): text bank {times['bank_s']:.3f} s (host clock); train step "
+        f"{', '.join(f'{v:.4f}' for v in per_step)} ms per epoch (CUDA events); test() "
+        f"{times['test_s']:.3f} s; run() {wall:.1f} s (host clock)")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    evaluate_main(["--experiment_path", run_dir, "--run_name", "replay", *cpu_args])
+    times["evaluate_s"] = time.perf_counter() - t0
+    check_counts("evaluate_clip over the BioGPT run", launch_counts(), {})
+    with open(os.path.join(run_dir, "replay", "results.json")) as fh:
+        if json.load(fh) != tested:
+            raise AssertionError("evaluate_clip's results.json differs from test()'s (BioGPT run)")
+    log(f"    evaluate_clip of the BioGPT run: results.json equal to test()'s, "
+        f"{times['evaluate_s']:.2f} s (host clock)")
+
+    report_dir, _image, _views = report_run(root, run_dir, shapes, tower)
+    reset_launch_counts()
+    decisions, report, times["report_s"] = run_generate_report(device, report_dir, "--image_id",
+                                                               REPORT_IMAGE)
+    check_counts("generate_report --image_id (BioGPT text tower, feature-store preset)",
+                 launch_counts(), PER_VIEW_LAUNCHES if on_card else {})
+    if not report or not decisions:
+        raise AssertionError(f"generate_report over the BioGPT run: {decisions}, {report!r}")
+    log(f"    generate_report --image_id {REPORT_IMAGE} ({shapes[0][0]}x{shapes[0][1]}, BioGPT prompts): "
+        f"{times['report_s']:.2f} s with the model load (host clock); {report[:80]}...")
+
+    feats = np.random.default_rng(18).standard_normal((3, 768)).astype("<f4")
+    request = {"op": "classify", "features_b64": base64.b64encode(feats.tobytes()).decode(),
+               "features_rows": 3, "class_list": ["Finding suggesting benign.",
+                                                  "Finding suggesting malignant."], "id": 18}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--experiment_path", run_dir, *cpu_args, "--once", json.dumps(request)])
+    times["serve_s"] = time.perf_counter() - t0
+    response = json.loads(out.getvalue().strip().splitlines()[-1])
+    probs = np.asarray(response.get("result", {}).get("classes_similarities", []))
+    if response.get("id") != 18 or probs.shape != (3, 2) or not np.isfinite(probs).all() \
+            or not np.allclose(probs.sum(1), 1.0, atol=1e-5):
+        raise AssertionError(f"serve --once classify over the BioGPT run: {response}")
+    log(f"    serve --once classify over the BioGPT run: argmax {response['result']['similarities_argmax']} "
+        f"in {times['serve_s']:.2f} s with the model load (host clock)")
+
+    if on_card:
+        tiny = CausalTextEncoder(GPTConfig.tiny(), torch.Generator().manual_seed(18)).eval()
+        rng = np.random.default_rng(18)
+        ids = torch.from_numpy(rng.integers(4, 256, size=(6, 40)))
+        mask = torch.from_numpy((np.arange(40)[None] < np.array([40, 33, 1, 17, 39, 8])[:, None]).astype(np.int64))
+        with torch.no_grad():
+            want = tiny(ids, mask)
+            got = tiny.to(device)(ids.to(device), mask.to(device)).cpu()
+        err = (got - want).abs().max().item()
+        log(f"    CausalTextEncoder at tiny width, card vs CPU: max_abs {err:.3e} (tol {GPT_TINY_ABS_TOL:.0e})")
+        if not err <= GPT_TINY_ABS_TOL:
+            raise AssertionError(f"the causal tower on the card differs from the CPU by {err}")
     return times
 
 
@@ -2150,6 +2416,10 @@ def main() -> int:
     # 5. kernels 3-6 parity ----------------------------------------------------
     log("[5] int8 block, fused stem, fused downsample, depthwise conv vs their plain versions")
     glue_err = phase_glue_parity(device, gen)
+
+    # 5b. the port-only threefry and dropout kernels ---------------------------
+    log("[5b] threefry2x32 and dropout vs their plain versions (utils/prng.py, on the CPU)")
+    dropout_err = phase_dropout_parity(device)
 
     # 6. the serving path ---------------------------------------------------------
     log("[6] serving path: ConvNeXt-Tiny (fused blocks, bf16) + BERT-base (flash), seeded weights")
@@ -2321,7 +2591,12 @@ def main() -> int:
         # 17. the exam-report family --------------------------------------------------------
         log("[17] the exam-report family: encode_studies (feature-store preset), "
             "train_exam_reports_clf (CLIPLoss, MMGCLIPLoss), PromptClassifier and the heads")
-        phase_exam(device, tmp.name, smi)
+        exam_times = phase_exam(device, tmp.name, smi)
+
+        # 18. the BioGPT text-tower family -----------------------------------------------
+        log("[18] BioGPT at full width: train (networks=clip_convnext_biogpt tokenizer=biogpt), "
+            "test(), evaluate_clip, generate_report and serve --once over the run")
+        phase_biogpt(device, tmp.name, smi, train_tree)
 
         # 11. times (after 12-17) --------------------------------------------------------
         log("[11] times (CUDA events, median of 10 after 3 warmup unless stated)")
@@ -2329,6 +2604,7 @@ def main() -> int:
                                block_err, flash_err)
         kernels += timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts)
         kernels.append(timing_ring(device, peaks, smi, ring_launches, ring_err))
+        kernels += timing_dropout(device, peaks, exam_times["train_launches"], dropout_err)
         timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_towers,
                         dw_pixels, tree, smi)
         timing_reports(device, report, smi)

@@ -1,19 +1,20 @@
 """MMGCLIP in PyTorch (port of mmgclip_tpu/models/clip.py).
 
 The dual-encoder CLIP head over frozen towers: stored 768-d ConvNeXt
-features are flattened (the ``ConvNextTiny`` feature path), the frozen BERT
-tower is EOS-pooled, each side goes through its projection head, then
+features are flattened (the ``ConvNextTiny`` feature path), the frozen text
+tower (BERT, or the causal BioGPT-family ``CausalTextEncoder``) is
+EOS-pooled, each side goes through its projection head, then
 L2-normalization and the learnable logit scale.  Parameters live on the
 module (``weights.load_clip_params`` loads the JAX trainable tree,
 ``weights.clip_params_tree`` writes it back).  The text tower is frozen
 (``requires_grad=False``); the trainable set is the heads plus
 ``logit_scale`` (``trainable_parameters``), as in the JAX package.
-``forward(train=True)`` applies head dropout from an explicit
-``torch.Generator`` and adds the T2T branch for ``MMGCLIPLoss``.
+``forward(train=True)`` splits the step's threefry key three ways (image
+head, text head, second text head) and applies flax's head dropout under
+them, and adds the T2T branch for ``MMGCLIPLoss``.
 ``PromptClassifier`` is the zero-shot wrapper over a model.
 
-Not ported yet (ROADMAP.md): the causal/BioGPT text tower and the trainable
-ResNet-50 image tower.
+Not ported yet (ROADMAP.md): the trainable ResNet-50 image tower.
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ import torch
 from torch import nn
 
 from ..config.compose import Config
+from ..ops import dropout as dropout_op
 from ..utils.flax_msgpack import read_file
 from ..utils.logging import logger
 from .bert import BertConfig, BertEncoder, eos_pool, trim_padded_tail
+from .gpt import CausalTextEncoder, GPTConfig
 from .projections import get_projection_head
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -52,9 +55,12 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x * torch.rsqrt(torch.clamp(squared, min=eps * eps))
 
 
-def _bert_config_from(config: Config, vocab_size: Optional[int]) -> BertConfig:
+CAUSAL_TEXT_ENCODERS = ("CausalTextEncoder", "BioGptEncoder", "GPTEncoder")
+
+
+def _text_tower_config_from(config: Config, vocab_size: Optional[int], config_cls):
     """Size keys, vocab fallback and dtype from ``networks.text_encoder.config``
-    (the same keys the JAX package reads)."""
+    (the same keys the JAX package reads) -> ``BertConfig`` / ``GPTConfig``."""
     overrides = config.get_path("networks.text_encoder.config", {}) or {}
     kwargs = {}
     for key in ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
@@ -65,7 +71,7 @@ def _bert_config_from(config: Config, vocab_size: Optional[int]) -> BertConfig:
         kwargs["vocab_size"] = int(vocab_size)
     if "dtype" in overrides:
         kwargs["dtype"] = resolve_dtype(overrides["dtype"])
-    return BertConfig(**kwargs)
+    return config_cls(**kwargs)
 
 
 class MMGCLIP(nn.Module):
@@ -79,17 +85,17 @@ class MMGCLIP(nn.Module):
         if image_encoder_name != "ConvNextTiny":
             raise NotImplementedError(
                 f"image encoder {image_encoder_name!r} is not ported yet; the port "
-                "serves the ConvNextTiny feature path (ROADMAP.md, queue 1 item 9)")
+                "serves the ConvNextTiny feature path (ROADMAP.md, queue 1 item 2: the "
+                "ResNet-50 tower)")
         self.image_encoder_name = image_encoder_name
         self.image_features_dimension = int(config.networks.image_encoder.image_features_dimension)
 
+        # frozen text tower: BERT-family, or causal (BioGPT-family) by name
         text_encoder_name = str(config.get_path("networks.text_encoder.name", "BertEncoder"))
-        if text_encoder_name != "BertEncoder":
-            raise NotImplementedError(
-                f"text encoder {text_encoder_name!r} is not ported yet (ROADMAP.md, "
-                "queue 1 item 9)")
-        self.bert_config = _bert_config_from(config, vocab_size)
-        self.text_module = BertEncoder(self.bert_config, torch.Generator().manual_seed(seed))
+        tower = ((GPTConfig, CausalTextEncoder) if text_encoder_name in CAUSAL_TEXT_ENCODERS
+                 else (BertConfig, BertEncoder))
+        self.bert_config = _text_tower_config_from(config, vocab_size, tower[0])
+        self.text_module = tower[1](self.bert_config, torch.Generator().manual_seed(seed))
         # converted text-tower weights: flax bytes of {"params": ...}, the
         # JAX package's networks.text_encoder.weights_path contract
         weights_path = str(config.get_path("networks.text_encoder.weights_path", "") or "")
@@ -165,32 +171,36 @@ class MMGCLIP(nn.Module):
         return eos_pool(hidden, tensors["attention_mask"])
 
     def project_image(self, features: torch.Tensor, train: bool = False,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      key: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.image_projection is None:
             return features
-        return self.image_projection(features, train=train, generator=generator)
+        return self.image_projection(features, train=train, key=key)
 
     def project_text(self, features: torch.Tensor, train: bool = False,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     key: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.text_projection is None:
             return features
-        return self.text_projection(features, train=train, generator=generator)
+        return self.text_projection(features, train=train, key=key)
 
     def forward(self, batch: Optional[Dict] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None, validation: bool = False,
+                key: Optional[torch.Tensor] = None, validation: bool = False,
                 text_features: Optional[torch.Tensor] = None,
                 text_features2: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Full forward (reference: mmgclip_model.py:117-166).
 
         ``text_features`` / ``text_features2`` short-circuit the frozen text
-        tower with cached EOS-pooled activations.  Dropout masks come from
-        ``generator`` in the order image head, text head, second text head."""
+        tower with cached EOS-pooled activations.  ``key``: the step's
+        threefry key (an int64 ``[2]`` tensor on the model's device), split
+        into the image, text and second text heads' dropout keys as the JAX
+        model splits its ``rng``."""
         batch = batch or {}
         image_features = self.apply_image_tower(batch["image_features"])
         if text_features is None:
             text_features = self.apply_text_tower(batch["text_tokens"])
-        image_embeddings = l2_normalize(self.project_image(image_features, train, generator))
-        text_embeddings = l2_normalize(self.project_text(text_features, train, generator))
+        # jax.random.split(key, 3): the image, text and second text heads' dropout keys
+        key_img, key_txt, key_txt2 = (None,) * 3 if key is None else dropout_op.split(key, 3)
+        image_embeddings = l2_normalize(self.project_image(image_features, train, key_img))
+        text_embeddings = l2_normalize(self.project_text(text_features, train, key_txt))
 
         logit_scale = torch.exp(self.logit_scale)
         output = {
@@ -206,7 +216,7 @@ class MMGCLIP(nn.Module):
                 text_features2 = self.apply_text_tower(batch["image_impression_tokens"])
             if text_features2 is not None:
                 output["text_embeddings2"] = l2_normalize(
-                    self.project_text(text_features2, train, generator))
+                    self.project_text(text_features2, train, key_txt2))
         return output
 
 

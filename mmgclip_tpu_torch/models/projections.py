@@ -4,10 +4,12 @@
 Bias-free linear, multi-linear stack with ReLU (+dropout), the BatchNorm
 MLP (``ProjectionHead``), the residual MLP head and the Switch-routed
 mixture-of-experts head (``MoEProjectionHead``).  Dropout is the identity
-at inference; in training (``train=True``) it draws its masks from the
-``torch.Generator`` the caller passes, as the JAX heads draw theirs from an
-explicit key.  A head's ``EXTRA_KNOBS`` are the ``projection.config`` keys
-the CLIP model passes on to it (the MoE head's ``n_experts``...).
+at inference; in training (``train=True``) it draws flax's masks from the
+head's dropout key (a threefry key tensor, ``utils/prng.py``): each Dropout
+site folds in the constant flax's ``make_rng`` folds in at that site
+(``Dropout_<i>`` of the head applied on its own), computed once here.  A
+head's ``EXTRA_KNOBS`` are the ``projection.config`` keys the CLIP model
+passes on to it (the MoE head's ``n_experts``...).
 """
 
 from __future__ import annotations
@@ -18,22 +20,28 @@ import torch
 from torch import nn
 
 from ..config.registry import PROJECTIONS
+from ..ops import dropout as dropout_op
+from ..utils.prng import make_rng_constant
 from ._params import ParamGroup, dense, flax_layer_norm, lecun_normal, norm
 
 BN_EPSILON = 1e-5  # flax nn.BatchNorm's default
 
 
-def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep each value with probability ``1 - rate`` and
-    scale kept values by ``1 / (1 - rate)``; the identity unless training."""
+def dropout_folds(n: int):
+    """The fold constants of a head's ``Dropout_0 .. Dropout_{n-1}``."""
+    return [make_rng_constant([f"Dropout_{i}"]) for i in range(n)]
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, key: Optional[torch.Tensor] = None,
+            fold: int = 0) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each value with probability ``1 - rate``
+    (``bernoulli`` under ``fold_in(key, fold)``) and scale kept values by
+    ``1 / (1 - rate)``; the identity unless training."""
     if not train or rate == 0.0:
         return x
-    keep = 1.0 - rate
-    if keep == 0.0:
-        return torch.zeros_like(x)
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    if key is None:
+        raise ValueError("train-mode dropout needs the head's dropout key")
+    return dropout_op.dropout(x, key, fold, rate)
 
 
 @PROJECTIONS.register("LinearProjectionLayer")
@@ -47,7 +55,7 @@ class LinearProjectionLayer(nn.Module):
         self.layer = dense(embedding_dim, int(projection_dim), g, bias=False)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
         return x @ self.layer.kernel
 
 
@@ -63,18 +71,19 @@ class MultiLinearHead(nn.Module):
         dims = [int(projection_dim)] if isinstance(projection_dim, int) else [int(d) for d in projection_dim]
         self.n_layers = len(dims)
         self.dropout = float(dropout)
+        self._folds = dropout_folds(self.n_layers - 1)
         fan_in = embedding_dim
         for i, width in enumerate(dims):
             setattr(self, f"layers_{i}", dense(fan_in, width, g))
             fan_in = width
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
         for i in range(self.n_layers):
             layer = getattr(self, f"layers_{i}")
             x = x @ layer.kernel + layer.bias
             if i < self.n_layers - 1:
-                x = dropout(torch.relu(x), self.dropout, train, generator)
+                x = dropout(torch.relu(x), self.dropout, train, key, self._folds[i])
         return x
 
 
@@ -117,6 +126,7 @@ class ProjectionHead(nn.Module):
         self.hidden_dims = [int(d) for d in hidden_dims]
         self.use_batchnorm = bool(use_batchnorm)
         self.dropout = float(dropout)
+        self._folds = dropout_folds(len(self.hidden_dims))  # a Dropout per hidden layer when > 0
         fan_in = embedding_dim
         for i, width in enumerate(self.hidden_dims):
             setattr(self, f"hidden_{i}", dense(fan_in, width, g))
@@ -126,13 +136,13 @@ class ProjectionHead(nn.Module):
         self.out = dense(fan_in, int(projection_dim), g)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
         for i in range(len(self.hidden_dims)):
             layer = getattr(self, f"hidden_{i}")
             x = x @ layer.kernel + layer.bias
             if self.use_batchnorm:
                 x = flax_batch_norm(x, getattr(self, f"bn_{i}"), train)
-            x = dropout(torch.relu(x), self.dropout, train, generator)
+            x = dropout(torch.relu(x), self.dropout, train, key, self._folds[i])
         return x @ self.out.kernel + self.out.bias
 
 
@@ -146,16 +156,17 @@ class MLPProjectionHead(nn.Module):
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         p = int(projection_dim)
         self.dropout = float(dropout)
+        self._folds = dropout_folds(1)
         self.projection = dense(embedding_dim, p, g)
         self.fc = dense(p, p, g)
         self.layer_norm = norm(p)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
         projected = x @ self.projection.kernel + self.projection.bias
         x = nn.functional.gelu(projected, approximate="none")
         x = x @ self.fc.kernel + self.fc.bias
-        x = dropout(x, self.dropout, train, generator)
+        x = dropout(x, self.dropout, train, key, self._folds[0])
         x = x + projected
         return flax_layer_norm(x, self.layer_norm.scale, self.layer_norm.bias)
 
@@ -182,6 +193,7 @@ class MoEProjectionHead(nn.Module):
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         h, e, p = embedding_dim, int(n_experts), int(projection_dim)
         self.n_experts, self.capacity_factor, self.dropout = e, float(capacity_factor), float(dropout)
+        self._folds = dropout_folds(1)
         self.router = nn.Parameter(lecun_normal((h, e), h, g))
         self.w_in = nn.Parameter(lecun_normal((e, h, p), h, g))
         self.b_in = nn.Parameter(torch.zeros(e, p))
@@ -189,7 +201,7 @@ class MoEProjectionHead(nn.Module):
         self.b_out = nn.Parameter(torch.zeros(e, p))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
         n, e = x.shape[0], self.n_experts
         capacity = max(1, int(self.capacity_factor * n / e))
         probs = torch.softmax((x @ self.router).float(), dim=-1)
@@ -207,7 +219,7 @@ class MoEProjectionHead(nn.Module):
                                     + self.b_in[:, None, :], approximate="none")
         expert_out = torch.einsum("ecp,epq->ecq", hidden, self.w_out) + self.b_out[:, None, :]
         y = torch.einsum("nec,ecq->nq", combine, expert_out)
-        return dropout(y, self.dropout, train, generator)
+        return dropout(y, self.dropout, train, key, self._folds[0])
 
 
 def get_projection_head(name: str):

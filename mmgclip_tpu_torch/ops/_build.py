@@ -7,7 +7,9 @@ and the flags, under
 ``mmgclip_tpu_torch/_build/``.  Builds happen at first use, never at import,
 and every source of a ``build_all`` call compiles in parallel.  The host C
 sources (``HOST_SOURCES``: the PNG unfilter) are built the same way by ``cc``
-(or ``gcc``) from ``$PATH``, keyed on the source and ``CC_FLAGS``.
+(or ``gcc``) from ``$PATH``, keyed on the source and ``CC_FLAGS``, and the
+host C++ sources (``CXX_SOURCES``: the ASCII WordPiece encoder) by ``c++``
+(or ``g++``), keyed on the source and ``CXX_FLAGS``.
 
 A failed build raises ``RuntimeError`` with the compiler's output: there is
 no fallback that would hide it.
@@ -29,13 +31,15 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("fused_block.cu", "flash_attention.cu", "fused_stem.cu", "fused_downsample.cu",
-           "depthwise_conv.cu", "ring_all_gather.cu")
+           "depthwise_conv.cu", "ring_all_gather.cu", "threefry_dropout.cu")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HOST_SOURCES = ("png_unfilter.c",)
 CC_FLAGS = ("-O3", "-std=c99", "-shared", "-fPIC")
+CXX_SOURCES = ("wordpiece.cc",)
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -70,10 +74,31 @@ def cc_path() -> str:
         "source at first use")
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: ``c++`` or ``g++`` from ``$PATH``."""
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(
+        "no C++ compiler (c++ or g++) on $PATH; the port's WordPiece encoder is built "
+        "from source at first use")
+
+
+def _is_host(source: str) -> bool:
+    return source in HOST_SOURCES or source in CXX_SOURCES
+
+
+def _flags(source: str) -> tuple:
+    if source in HOST_SOURCES:
+        return CC_FLAGS
+    return CXX_FLAGS if source in CXX_SOURCES else NVCC_FLAGS
+
+
 def _library_path(source: str) -> str:
     """The library's path, keyed on the source, the shared headers and the flags."""
-    host = source in HOST_SOURCES
-    digest = hashlib.sha256(" ".join(CC_FLAGS if host else NVCC_FLAGS).encode())
+    host = _is_host(source)
+    digest = hashlib.sha256(" ".join(_flags(source)).encode())
     headers = [] if host else sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for name in [source, *headers]:
         with open(os.path.join(CSRC_DIR, name), "rb") as fh:
@@ -87,10 +112,9 @@ def _start_build(source: str) -> Tuple[subprocess.Popen, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    if source in HOST_SOURCES:
-        cmd = [cc_path(), *CC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
-    else:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    compiler = (cc_path() if source in HOST_SOURCES else cxx_path() if source in CXX_SOURCES
+                else nvcc_path())
+    cmd = [compiler, *_flags(source), "-o", tmp, os.path.join(CSRC_DIR, source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp
 
@@ -153,7 +177,7 @@ def load_typed(source: str, signatures: Dict[str, list]) -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            if source not in HOST_SOURCES:
+            if not _is_host(source):
                 lib.mmg_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.mmg_cuda_error_string.restype = ctypes.c_char_p
             lib._mmg_typed = True

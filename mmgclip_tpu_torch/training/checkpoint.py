@@ -13,17 +13,19 @@ The AdamW state crosses both ways.  ``opt_state`` holds the flax bytes of
 own template: the injected hyperparams, the outer count, and the inner
 ``ScaleByAdamState`` count and moments by parameter path.  ``load_checkpoint``
 maps that layout onto the port's ``AdamW.state_dict()``.  The port also
-keeps its own copy under ``torch_opt_state``.  The RNG state does not cross:
-the JAX dropout key is a threefry key, which no ``torch.Generator`` state
-reproduces, so the port writes its generator's bytes under
-``torch_rng_state`` and leaves ``rng_key`` empty, which the JAX loader skips.
+keeps its own copy under ``torch_opt_state``.  The dropout key crosses both
+ways too: ``rng_key`` holds ``jax.random.key_data(key).tolist()``, the two
+uint32 words of the threefry key, which the port's trainer keeps as a tensor
+(``utils/prng.py``).  A port checkpoint from before the key crossed has
+``torch_rng_state`` and no ``rng_key``; the trainer then warns and restarts
+dropout from the seeded key.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -91,9 +93,10 @@ def adamw_state_from_optax(tree: Dict[str, Any]) -> Dict[str, Any]:
 def save_checkpoint(path: str, params: Dict[str, Any], opt_state: Optional[Dict] = None,
                     epoch: int = 0, val_loss: float = float("inf"),
                     best_score: Optional[float] = None, counter: int = 0,
-                    rng_state: Optional[bytes] = None,
+                    rng_key: Optional[List[int]] = None,
                     extra: Optional[Dict[str, Any]] = None) -> str:
-    """``params``: a JAX-layout tree of numpy arrays (``weights.clip_params_tree``)."""
+    """``params``: a JAX-layout tree of numpy arrays (``weights.clip_params_tree``);
+    ``rng_key``: the dropout key's two uint32 words."""
     create_directory_if_not_exists(os.path.dirname(path) or ".")
     state = {
         "epoch": epoch,
@@ -102,10 +105,9 @@ def save_checkpoint(path: str, params: Dict[str, Any], opt_state: Optional[Dict]
         "counter": counter,
         "params": to_bytes(params),
         "opt_state": to_bytes(optax_adamw_state(opt_state)) if opt_state is not None else None,
-        "rng_key": None,
+        "rng_key": [int(v) for v in rng_key] if rng_key is not None else None,
         "extra": extra or {},
         "torch_opt_state": to_bytes(opt_state) if opt_state is not None else None,
-        "torch_rng_state": rng_state,
     }
     tmp = path + ".tmp"
     with open(tmp, "wb") as fh:
@@ -117,8 +119,9 @@ def save_checkpoint(path: str, params: Dict[str, Any], opt_state: Optional[Dict]
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Checkpoint file (either package's) -> dict whose ``params`` is a nested
     dict of numpy arrays; ``opt_state`` (in ``AdamW.state_dict()``'s layout)
-    when the file holds one, ``torch_opt_state`` / ``torch_rng_state`` when
-    the port wrote it.  Load the params into a model with
+    when the file holds one, ``rng_key`` (two uint32 words) when it holds
+    a dropout key, ``torch_opt_state`` when the port wrote it.  Load the
+    params into a model with
     ``weights.load_clip_params``."""
     with open(path, "rb") as fh:
         state = pickle.load(fh)
@@ -133,10 +136,8 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     if state.get("opt_state") is not None:
         out["opt_state"] = adamw_state_from_optax(from_bytes(state["opt_state"]))
     if state.get("rng_key") is not None:
-        out["rng_key"] = list(state["rng_key"])
+        out["rng_key"] = [int(v) for v in state["rng_key"]]
     if state.get("torch_opt_state") is not None:
         out["torch_opt_state"] = from_bytes(state["torch_opt_state"])
-    if state.get("torch_rng_state") is not None:
-        out["torch_rng_state"] = state["torch_rng_state"]
     logger.info(f"Loaded checkpoint from {path} (epoch {out['epoch']}).")
     return out

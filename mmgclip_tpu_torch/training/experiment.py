@@ -15,9 +15,11 @@ Rebuild of the reference train/validate/test life cycle
   first ``GRAPH_WARMUP_STEPS`` steps of the run go eagerly on a side stream
   (real steps), then one step (zero-grad, forward, loss, backward, AdamW)
   is captured as a CUDA graph over a static batch-index buffer, and every
-  later step is one index copy and one replay.  The dropout generator is
-  registered with the graph, so replays draw what eager steps would and
-  checkpoints carry the advanced state; a capture that fails raises;
+  later step is one index copy and one replay.  The dropout key is JAX's
+  threefry key as an int64 ``[2]`` tensor on the device: each step splits it
+  (``jax.random.split``) and copies the new key into it in place, inside the
+  graph, so replays draw JAX's masks and checkpoints carry the key in JAX's
+  form (``rng_key``); a capture that fails raises;
 * a sampler switches to the per-batch loop over the loader;
 * validation probes (malignancy / mass-shape / BI-RADS zero-shot AUCs, with
   the pooled probe prompts cached) match the reference's metric set.
@@ -42,7 +44,9 @@ from ..ingest.encode import resolve_device
 from ..losses import create_loss
 from ..models.bert import eos_pool, trim_padded_tail
 from ..models.clip import MMGCLIP, l2_normalize
+from ..ops import dropout as dropout_op
 from ..prompts.enums import BenignMalignantDatasetLabels, MassShapeLabels
+from ..utils import prng
 from ..utils.logging import logger
 from ..utils.profiling import maybe_trace
 from ..utils.seeding import create_directory_if_not_exists
@@ -118,8 +122,8 @@ class ClassifierExperiment:
         self.timings: Dict[str, object] = {"epoch_device_ms": [], "epoch_steps": []}
 
         seed = int(config.base.seed)
-        # dropout masks: one explicit generator on the device (the JAX key)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # dropout: jax.random.key(seed) on the device, advanced in place each step
+        self.rng_key = prng.key(seed, device=self.device)
 
         vocab = tokenizer.vocab_size if tokenizer is not None else None
         self.model = MMGCLIP(config, seed=seed, vocab_size=vocab)
@@ -206,16 +210,22 @@ class ClassifierExperiment:
         return bank
 
     # ------------------------------------------------------------------
-    def _loss(self, image_features, text_features, text_features2, train: bool):
-        out = self.model({"image_features": image_features}, train=train,
-                         generator=self.generator if train else None,
+    def _loss(self, image_features, text_features, text_features2, key=None):
+        out = self.model({"image_features": image_features}, train=key is not None, key=key,
                          text_features=text_features, text_features2=text_features2)
         loss, _labels = self.criterion(**out)
         return loss, out
 
+    def _step_key(self) -> torch.Tensor:
+        """``self.rng_key, step_key = jax.random.split(self.rng_key)``, the new
+        key copied into the key tensor in place (no read back)."""
+        keys = dropout_op.split(self.rng_key, 2)
+        self.rng_key.copy_(keys[0])
+        return keys[1]
+
     def _train_step(self, image_features, text_features, text_features2) -> torch.Tensor:
         self.optimizer.zero_grad()
-        loss, _out = self._loss(image_features, text_features, text_features2, train=True)
+        loss, _out = self._loss(image_features, text_features, text_features2, self._step_key())
         loss.backward()
         self.optimizer.step()
         return loss.detach()
@@ -262,7 +272,6 @@ class ClassifierExperiment:
         Failure raises: there is no eager fallback on the card."""
         self._graph_idx = torch.zeros(bs, dtype=torch.long, device=self.device)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
         with torch.cuda.graph(graph):
             self._bank_step(self._graph_idx)
         self._graph = graph
@@ -378,7 +387,7 @@ class ClassifierExperiment:
         logit_scale = torch.exp(self.model.logit_scale)
         for batch in self.valid_dataloader:
             feats, text, text2 = self._device_batch(batch)
-            loss, out = self._loss(feats, text, text2, train=False)
+            loss, out = self._loss(feats, text, text2)
             losses.append(loss)
             image_emb = out["image_embeddings"]
 
@@ -465,15 +474,14 @@ class ClassifierExperiment:
 
         return clip_params_tree(self.model)
 
-    def _host_rng_state(self) -> bytes:
-        return bytes(self.generator.get_state().cpu().numpy().tobytes())
+    def _host_rng_key(self) -> list:
+        """``jax.random.key_data(rng_key).tolist()``: the key as written to a checkpoint."""
+        return [int(v) for v in self.rng_key.cpu().tolist()]
 
     def resume(self) -> bool:
         """Restore the train state if a checkpoint exists.  A checkpoint of
-        either package restores params, bookkeeping and the AdamW count,
-        moments and hyperparams; a JAX checkpoint's dropout key (threefry)
-        does not map onto a ``torch.Generator``, so dropout then restarts
-        from the seeded generator."""
+        either package restores params, bookkeeping, the AdamW count, moments
+        and hyperparams, and the dropout key."""
         from ..weights import load_clip_params
 
         if not os.path.isfile(self.ckp_path):
@@ -485,14 +493,12 @@ class ClassifierExperiment:
             self.optimizer.load_state_dict(opt_state)
         else:
             logger.warning("Checkpoint has no optimizer state; AdamW restarts from zero moments.")
-        if "torch_rng_state" in state:
-            self.generator.set_state(torch.frombuffer(bytearray(state["torch_rng_state"]),
-                                                      dtype=torch.uint8))
+        if "rng_key" in state:
+            with torch.no_grad():  # in place: a captured graph reads this tensor
+                self.rng_key.copy_(torch.tensor(state["rng_key"], dtype=torch.int64))
         else:
-            logger.warning(
-                "Checkpoint has no torch.Generator state: a JAX checkpoint's dropout key is a "
-                "threefry key, which does not map onto a torch.Generator; dropout restarts "
-                "from the seeded generator.")
+            logger.warning("Checkpoint has no dropout key (a port checkpoint from before the key "
+                           "crossed checkpoints); dropout restarts from the seeded key.")
         self.current_epoch = state["epoch"] + 1
         self.early_stopper.best_score = state["best_score"]
         self.early_stopper.counter = state["counter"]
@@ -530,7 +536,7 @@ class ClassifierExperiment:
             self.early_stopper(
                 validation_loss=val_loss, epoch=self.current_epoch, params=self._host_params,
                 opt_state=self.optimizer.state_dict, path=self.ckp_path,
-                rng_state=self._host_rng_state, extra=self._scheduler_state(),
+                rng_key=self._host_rng_key, extra=self._scheduler_state(),
             )
             logger.info(
                 f"Epoch: {self.current_epoch + 1}/{total_epochs} | {elapsed:.1f}s | lr: {lr:.6f} | "

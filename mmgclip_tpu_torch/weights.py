@@ -9,6 +9,8 @@ mapping is by path: the flax path ``stage_0/dwconv_kernel`` is the
 * ConvNeXt's stacked ``[depth, ...]`` NHWC/HWIO tree (``convnext.py:121-133``
   of the JAX package), stem, downsamples and head;
 * BERT's ``[L, H, 3, heads, dh]`` qkv layout and its other stacked tensors;
+* the causal (BioGPT-family) tower's stacked tree (``qkv_kernel`` ``[L, H,
+  3H]``, ``embed_tokens``, ``embed_positions``, ``final_norm``);
 * the trainable CLIP tree (``image_projection``, ``text_projection``,
   ``logit_scale``), every head included: the BatchNorm ``ProjectionHead``'s
   ``batch_stats`` go to its buffers (``load_head_state``), the MoE head's

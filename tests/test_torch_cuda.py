@@ -20,7 +20,9 @@ byte-identical reports for every speed knob of the tower); the fused epoch
 as a CUDA graph against the eager epoch, and a resume after the capture
 against an unbroken run, within 1e-6 relative (losses and params); the exam
 family's ``encode_studies`` launching the store preset's kernels per
-program call.
+program call; the threefry and dropout kernels bit-equal to their plain
+versions (``utils/prng.py``): keys, masks, outputs and gradients, also
+replayed in a CUDA graph.
 """
 
 import numpy as np
@@ -51,6 +53,9 @@ from mmgclip_tpu_torch.ops.fused_downsample import (
     launch_fused_ln_downsample,
     plain_ln_downsample,
 )
+from mmgclip_tpu_torch.ops.dropout import dropout, launch_dropout, launch_threefry2x32, plain_dropout
+from mmgclip_tpu_torch.ops.dropout import fold_in as device_fold_in
+from mmgclip_tpu_torch.ops.dropout import split as device_split
 from mmgclip_tpu_torch.ops.fused_stem import fused_stem, launch_fused_stem, plain_stem
 from mmgclip_tpu_torch.parallel import (
     check_ring,
@@ -61,6 +66,7 @@ from mmgclip_tpu_torch.parallel import (
     ring_all_gather_plain,
 )
 from mmgclip_tpu_torch.parallel.collectives import _launch_ring
+from mmgclip_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.cuda
 
@@ -457,6 +463,8 @@ def _cpu_calls():
         "flash_attention": lambda: launch_flash_attention(
             *qkv(1, 1, 4, 8, torch.float32, "cpu"), torch.tensor([4], dtype=torch.int32)),
         "ring_all_gather": lambda: launch_ring_all_gather([torch.zeros(2, 3), torch.ones(2, 3)]),
+        "threefry2x32": lambda: launch_threefry2x32(prng.key(0), 0, 2),
+        "dropout": lambda: launch_dropout(x, prng.key(0), 1, 0.5),
     }
 
 
@@ -629,7 +637,7 @@ def test_resume_after_capture_matches_an_unbroken_run(cuda_device, tmp_path):
     scrambled, then ``resume()`` from its best checkpoint: the later epochs
     replay the same graph against the restored tensors and end where an
     unbroken run ends (losses and params within 1e-6 relative; dropout on,
-    the generator restored from the checkpoint)."""
+    the dropout key restored from the checkpoint)."""
     from mmgclip_tpu_torch.train import build_experiment
     from mmgclip_tpu_torch.training.checkpoint import load_checkpoint
     from mmgclip_tpu_torch.utils.tb import ScalarWriter, read_scalars
@@ -655,7 +663,7 @@ def test_resume_after_capture_matches_an_unbroken_run(cuda_device, tmp_path):
                 t.zero_()
         broken.optimizer.count.fill_(0)
         broken.optimizer.hyperparams["weight_decay"].fill_(0.5)
-    broken.generator.manual_seed(123)
+    broken.rng_key.fill_(123)
     cfg.scheduler.config.epochs = 3
     assert broken.resume() and broken.current_epoch == best + 1
     broken.writer = ScalarWriter(cfg.base.tensorboard_export_dir)  # run() closed it
@@ -682,3 +690,65 @@ def test_encode_studies_launches_the_store_kernels(cuda_device, tmp_path):
         cuda_device, str(tmp_path / "exam"), "card test", ((256, 208), (250, 200)),
         chip_smoke.REPORT_TOWER, [TINY_TEXT], 2)
     assert len(table) == 2 and vectors.shape == (2, 768) and times["encode_s"] > 0
+
+
+# ----------------------------------------------------------------------
+# threefry and dropout (port-only kernel, csrc/threefry_dropout.cu)
+
+@pytest.mark.parametrize("seed", [0, 42, 2**31 - 1])
+def test_threefry_kernel_matches_plain(cuda_device, seed):
+    key = prng.key(seed)
+    for n in (1, 2, 3, 257, 100_003):
+        assert torch.equal(device_split(key.to(cuda_device), n).cpu(), prng.split(key, n))
+    for data in (0, 1, 0x9E3779B9, 2**32 - 1):
+        assert torch.equal(device_fold_in(key.to(cuda_device), data).cpu(), prng.fold_in(key, data))
+
+
+@pytest.mark.parametrize("shape", [(64, 768), (4096, 4096), (7, 13), (1,), (3, 5, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.5, 0.2])
+def test_dropout_kernel_matches_plain(cuda_device, shape, dtype, rate):
+    """Mask, output and gradient bit-equal to the plain version on the CPU."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    key, fold = prng.split(prng.key(11), 3)[1], prng.make_rng_constant(["Dropout_0"])
+    out, mask = launch_dropout(x.to(cuda_device), key.to(cuda_device), fold, 1.0 - rate)
+    ref, ref_mask = plain_dropout(x, key, fold, 1.0 - rate)
+    assert torch.equal(mask.cpu().bool(), ref_mask)
+    assert torch.equal(out.cpu(), ref)
+    xc, xg = x.clone().requires_grad_(True), x.to(cuda_device).requires_grad_(True)
+    dropout(xc, key, fold, rate).backward(g)
+    dropout(xg, key.to(cuda_device), fold, rate).backward(g.to(cuda_device))
+    assert torch.equal(xg.grad.cpu(), xc.grad)
+
+
+def test_dropout_key_advances_inside_a_cuda_graph(cuda_device):
+    """A step that splits its key in place and draws a mask, captured once
+    and replayed, draws what the eager steps draw (no host read)."""
+    x = torch.randn(64, 768, device=cuda_device)
+    fold = prng.make_rng_constant(["Dropout_0"])
+
+    def step(key, out):
+        keys = device_split(key, 2)
+        key.copy_(keys[0])
+        out.copy_(dropout(x, device_split(keys[1], 3)[0], fold, 0.2))
+
+    eager_key, eager_out = prng.key(5).to(cuda_device), torch.empty_like(x)
+    eager = []
+    for _ in range(4):
+        step(eager_key, eager_out)
+        eager.append(eager_out.clone())
+    key, out = prng.key(5).to(cuda_device), torch.empty_like(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(key, out)  # warm-up: the first eager step
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # records the step; runs nothing
+        step(key, out)
+    for want in eager[1:]:
+        graph.replay()
+        assert torch.equal(out, want)
+    assert torch.equal(key, eager_key)

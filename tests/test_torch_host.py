@@ -159,11 +159,25 @@ def test_token_ids_are_bit_equal(monkeypatch, max_length, padding):
         assert a[key].dtype == b[key].dtype and np.array_equal(a[key], b[key]), key
 
 
+def test_biogpt_tokenizer_ids_equal_jax():
+    """``microsoft/biogpt`` offline: the in-repo Moses+BPE vocabulary learned
+    from the corpus, id for id JAX's (the port's own Moses split)."""
+    ours = Tokenizer.from_pretrained("microsoft/biogpt", 64)
+    theirs = JaxTokenizer.from_pretrained("microsoft/biogpt", 64)
+    texts = all_bank_sentences() + ["Élan, ünïcode — test!", "x " * 300]
+    a, b = ours(texts), theirs(texts)
+    assert ours.vocab_size == theirs.vocab_size and set(a) == set(b)
+    for key in b:
+        assert a[key].dtype == b[key].dtype and np.array_equal(a[key], b[key]), key
+
+
 def test_tokenizer_refuses_families_it_cannot_tokenize():
-    with pytest.raises(NotImplementedError):
-        Tokenizer.from_pretrained("microsoft/biogpt")
-    with pytest.raises(NotImplementedError):
-        Tokenizer.from_pretrained("mistralai/Mistral-7B-v0.1")
+    """SentencePiece families have no offline backend: ``RuntimeError`` in both packages."""
+    for name in ("mistralai/Mistral-7B-v0.1", "meta-llama/Llama-2-7b", "google/t5-base"):
+        with pytest.raises(RuntimeError, match="SentencePiece"):
+            Tokenizer.from_pretrained(name)
+        with pytest.raises(RuntimeError, match="SentencePiece"):
+            JaxTokenizer.from_pretrained(name)
 
 
 def test_report_banks_equal_jax():

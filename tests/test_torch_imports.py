@@ -25,7 +25,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "mmgclip_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmgclip_tpu", "yaml", "msgpack", "PIL",
-             "pandas", "nltk", "transformers", "triton", "ninja")
+             "pandas", "nltk", "transformers", "sacremoses", "triton", "ninja")
 BLOCKED = FORBIDDEN + ("matplotlib", "tensorboard")
 
 

@@ -2,8 +2,10 @@
 JAX package's on the same seeded fixture.
 
 Both packages train the ``train_binary_class_clf`` preset with a 2-layer,
-64-wide BERT and a 2-layer projection head (dropout 0) for 3 epochs on the
-same separable feature store.  The frozen text tower's flax bytes go to both
+64-wide BERT and a 2-layer projection head for 3 epochs on the same
+separable feature store, once with dropout 0 and once with dropout 0.5 (the
+port draws JAX's masks: the threefry key, split per step, and flax's
+``make_rng`` fold-in).  The frozen text tower's flax bytes go to both
 through ``networks.text_encoder.weights_path``, and the JAX model's initial
 trainable tree goes to the port through ``weights``.  Held:
 
@@ -15,8 +17,9 @@ trainable tree goes to the port through ``weights``.  Held:
 * a run of two epochs in one package, resumed for the third in the other
   from its checkpoint (AdamW count, moments and hyperparams crossing), ends
   where the resuming package's unbroken run ends: the third epoch's losses
-  within 1e-5 relative and the final params within 1e-5.  Dropout is 0, so
-  the dropout key, which does not cross, draws nothing.
+  within 1e-5 relative and the final params within 1e-5.  The dropout key
+  crosses in JAX's ``rng_key`` form, so with dropout on the resumed epoch
+  draws the unbroken run's masks.
 """
 
 import json
@@ -51,7 +54,7 @@ PARAM_ATOL = 1e-5
 EPOCHS = 3
 
 
-def overrides(tree, run_dir, text_path):
+def overrides(tree, run_dir, text_path, dropout):
     base, annotated, lists, features = tree
     return [
         f"dataset.config.base_dataset_path={base}",
@@ -62,7 +65,7 @@ def overrides(tree, run_dir, text_path):
         f"networks.text_encoder.weights_path={text_path}",
         "networks.text_encoder.config={hidden_size: 64, num_hidden_layers: 2, "
         "num_attention_heads: 4, intermediate_size: 128, max_position_embeddings: 64}",
-        "networks.dropout.config.dropout=0.0",
+        f"networks.dropout.config.dropout={dropout}",
         "projection=2xLinear256",
         "tokenizer.config.sequence_length=32",
         f"scheduler.config.epochs={EPOCHS}",
@@ -77,8 +80,9 @@ def overrides(tree, run_dir, text_path):
     ]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+@pytest.fixture(scope="module", params=[0.0, 0.5], ids=["dropout0", "dropout0.5"])
+def runs(tmp_path_factory, request):
+    dropout = request.param
     root = tmp_path_factory.mktemp("train_e2e")
     tree = build_image_label_tree(str(root / "data"), n_benign=12, n_malignant=12,
                                   separable=True)
@@ -86,7 +90,7 @@ def runs(tmp_path_factory):
 
     jax_dir, port_dir = root / "jax_run", root / "port_run"
     jcfg = jax_compose(CONFIGS, "train_binary_class_clf",
-                       overrides(tree, jax_dir, text_path), run_dir=str(jax_dir))
+                       overrides(tree, jax_dir, text_path, dropout), run_dir=str(jax_dir))
     tokenizer = JaxTokenizer.from_pretrained(jcfg.tokenizer.config.tokenizer_name,
                                              sequence_length=32)
     model = JaxMMGCLIP(jcfg, seed=int(jcfg.base.seed), vocab_size=tokenizer.vocab_size)
@@ -97,14 +101,14 @@ def runs(tmp_path_factory):
     jax_save_snapshot(jcfg, str(jax_dir))
     jax_train.run(jcfg)
 
-    cfg = compose(CONFIGS, "train_binary_class_clf", overrides(tree, port_dir, text_path),
+    cfg = compose(CONFIGS, "train_binary_class_clf", overrides(tree, port_dir, text_path, dropout),
                   run_dir=str(port_dir))
     from mmgclip_tpu_torch.config import save_snapshot
 
     save_snapshot(cfg, str(port_dir))
     experiment = port_train.run(cfg, device="cpu", init_params=init_params)
     return {"jax": jcfg, "port": cfg, "experiment": experiment, "model": model, "root": root,
-            "tree": tree, "text_path": text_path, "init_params": init_params}
+            "tree": tree, "text_path": text_path, "init_params": init_params, "dropout": dropout}
 
 
 def test_epoch_losses_match_jax(runs):
@@ -113,7 +117,10 @@ def test_epoch_losses_match_jax(runs):
     for tag in ("loss/train", "loss/val"):
         assert len(port_scalars[tag]) == EPOCHS
         np.testing.assert_allclose(port_scalars[tag], jax_scalars[tag], rtol=LOSS_RTOL, err_msg=tag)
-    assert port_scalars["loss/train"][-1] < port_scalars["loss/train"][0]
+    # training moved the model: with dropout off the train loss falls; with it
+    # on the train loss carries the masks' noise and the validation loss falls
+    tag = "loss/train" if runs["dropout"] == 0.0 else "loss/val"
+    assert port_scalars[tag][-1] < port_scalars[tag][0]
     np.testing.assert_allclose(port_scalars["lr"], jax_scalars["lr"], rtol=1e-12)
 
 
@@ -140,7 +147,9 @@ def test_checkpoints_cross_both_ways(runs):
     for key in ("epoch", "counter"):
         assert port_state[key] == jax_state[key]
     np.testing.assert_allclose(port_state["val_loss"], jax_state["val_loss"], rtol=LOSS_RTOL)
-    assert port_state["torch_opt_state"] is not None and port_state["torch_rng_state"]
+    assert port_state["torch_opt_state"] is not None and "torch_rng_state" not in port_state
+    # the dropout key in JAX's form, advanced by as many steps in both runs
+    assert port_state["rng_key"] == jax_state["rng_key"] and len(jax_state["rng_key"]) == 2
 
 
 def test_final_params_match_jax_run(runs):
@@ -187,7 +196,7 @@ def _port_run(runs, name, extra=()):
 
     run_dir = runs["root"] / name
     cfg = compose(CONFIGS, "train_binary_class_clf",
-                  overrides(runs["tree"], run_dir, runs["text_path"]) + list(extra),
+                  overrides(runs["tree"], run_dir, runs["text_path"], runs["dropout"]) + list(extra),
                   run_dir=str(run_dir))
     save_snapshot(cfg, str(run_dir))
     return cfg, port_train.run(cfg, device="cpu", init_params=runs["init_params"])
@@ -196,7 +205,7 @@ def _port_run(runs, name, extra=()):
 def _jax_run(runs, name, extra=()):
     run_dir = runs["root"] / name
     jcfg = jax_compose(CONFIGS, "train_binary_class_clf",
-                       overrides(runs["tree"], run_dir, runs["text_path"]) + list(extra),
+                       overrides(runs["tree"], run_dir, runs["text_path"], runs["dropout"]) + list(extra),
                        run_dir=str(run_dir))
     jax_save_snapshot(jcfg, str(run_dir))
     jax_train.run(jcfg)

@@ -40,6 +40,7 @@ from mmgclip_tpu_torch.losses import losses
 from mmgclip_tpu_torch.models.clip import MMGCLIP
 from mmgclip_tpu_torch.training import experiment, optim
 from mmgclip_tpu_torch.training.checkpoint import load_checkpoint
+from mmgclip_tpu_torch.utils import prng
 from mmgclip_tpu_torch.utils.flax_msgpack import from_bytes, to_bytes
 from mmgclip_tpu_torch.utils.table import Table
 from mmgclip_tpu_torch.weights import clip_params_tree, load_clip_params
@@ -375,14 +376,25 @@ def _tiny_model_config(loss, projection="2xLinear256", dropout=0.0):
 
 @pytest.mark.parametrize("loss", ["clip", "mmgclip"])
 def test_training_forward_matches_jax(loss):
-    cfg, jcfg = _tiny_model_config(loss)
+    _forward_against_jax(loss, dropout=0.0)
+
+
+@pytest.mark.parametrize("loss", ["clip", "mmgclip"])
+def test_training_forward_with_dropout_matches_jax(loss):
+    """Dropout 0.5 in all three heads: the step key splits three ways as in
+    the JAX model, so the embeddings (masks included) match."""
+    _forward_against_jax(loss, dropout=0.5)
+
+
+def _forward_against_jax(loss, dropout):
+    cfg, jcfg = _tiny_model_config(loss, dropout=dropout)
     jmodel = JaxMMGCLIP(jcfg, seed=3)
     model = MMGCLIP(cfg, seed=3)
     load_clip_params(model, jax.device_get(jmodel.trainable_params))
     rng = np.random.default_rng(5)
     feats = rng.standard_normal((6, 768)).astype(np.float32)
     text, text2 = (rng.standard_normal((6, 32)).astype(np.float32) for _ in range(2))
-    ours = model({"image_features": torch.tensor(feats)}, train=True, generator=torch.Generator(),
+    ours = model({"image_features": torch.tensor(feats)}, train=True, key=prng.key(0),
                  text_features=torch.tensor(text), text_features2=torch.tensor(text2))
     theirs = jmodel.forward(jmodel.trainable_params, {"image_features": jnp.asarray(feats)}, train=True,
                             rng=jax.random.key(0), text_features=jnp.asarray(text),
@@ -400,26 +412,68 @@ def test_training_forward_matches_jax(loss):
     assert not any(p.requires_grad for p in model.text_module.parameters())
 
 
-def test_train_mode_dropout_draws_from_the_generator():
-    cfg, _ = _tiny_model_config("clip", projection="3xLinear512", dropout=0.5)
-    model = MMGCLIP(cfg, seed=3)
-    x = torch.randn(64, 768, generator=torch.Generator().manual_seed(0))
-    head = model.image_projection
-    eval_out = head(x)
-    a = head(x, train=True, generator=torch.Generator().manual_seed(7))
-    b = head(x, train=True, generator=torch.Generator().manual_seed(7))
-    c = head(x, train=True, generator=torch.Generator().manual_seed(8))
-    torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert not torch.equal(a, c) and not torch.equal(a, eval_out)
-    hidden = torch.relu(x @ head.layers_0.kernel + head.layers_0.bias)
-    kept = torch.relu(x @ head.layers_0.kernel + head.layers_0.bias)
-    from mmgclip_tpu_torch.models.projections import dropout
+# every head kind with a Dropout: (JAX class, port class, constructor kwargs)
+DROPOUT_HEADS = {
+    "MultiLinearHead": ("MultiLinearHead", {"projection_dim": (40, 24, 16), "dropout": 0.5}),
+    "ProjectionHead": ("ProjectionHead", {"projection_dim": 16, "dropout": 0.2,
+                                          "hidden_dims": (40, 24)}),
+    "MLPProjectionHead": ("MLPProjectionHead", {"projection_dim": 24, "dropout": 0.5}),
+    "MoEProjectionHead": ("MoEProjectionHead", {"projection_dim": 16, "dropout": 0.2,
+                                                "n_experts": 4, "capacity_factor": 2.0}),
+}
 
-    dropped = dropout(hidden, 0.5, True, torch.Generator().manual_seed(1))
-    nonzero = hidden != 0
-    frac = ((dropped != 0) & nonzero).sum().item() / nonzero.sum().item()
-    assert 0.45 < frac < 0.55
-    torch.testing.assert_close(dropped[(dropped != 0)], 2 * kept[(dropped != 0)])
+
+@pytest.mark.parametrize("name", sorted(DROPOUT_HEADS))
+def test_train_mode_dropout_masks_equal_flax(name):
+    """Each Dropout site of a head, on flax's own input to it, draws flax's
+    mask and output bit for bit under the head's key (``make_rng``'s fold-in
+    of ``Dropout_<i>``); the whole head's train-mode output matches
+    ``module.apply(..., rngs={"dropout": key})`` on carried-over params
+    within the forward tolerance, and two seeds draw other masks."""
+    import flax.linen as nn
+
+    from mmgclip_tpu.models import projections as jax_projections
+    from mmgclip_tpu_torch.models import projections as port_projections
+    from mmgclip_tpu_torch.models.projections import dropout
+    from mmgclip_tpu_torch.utils import prng
+    from mmgclip_tpu_torch.weights import load_flax_tree, load_head_state
+
+    cls_name, kwargs = DROPOUT_HEADS[name]
+    x = np.random.default_rng(11).standard_normal((24, 48)).astype(np.float32)
+    jhead = getattr(jax_projections, cls_name)(embedding_dim=48, **kwargs)
+    variables = jax.device_get(jhead.init(jax.random.key(2), jnp.asarray(x)))
+    port_kwargs = {k: v for k, v in kwargs.items() if k not in ("projection_dim", "dropout")}
+    head = getattr(port_projections, cls_name)(48, kwargs["projection_dim"], kwargs["dropout"],
+                                                **port_kwargs)
+    load_flax_tree(head, variables["params"])
+    load_head_state(head, {k: v for k, v in variables.items() if k != "params"})
+
+    for seed in (0, 7):
+        sites = []
+
+        def record(next_fun, args, kwargs_, context):
+            out = next_fun(*args, **kwargs_)
+            if isinstance(context.module, nn.Dropout):
+                sites.append((context.module.name, np.asarray(args[0]), np.asarray(out)))
+            return out
+
+        mutable = [k for k in variables if k != "params"] or False
+        with nn.intercept_methods(record):
+            ref = jhead.apply(variables, jnp.asarray(x), deterministic=False,
+                              rngs={"dropout": jax.random.key(seed)}, mutable=mutable)
+        ref = np.asarray(ref[0] if mutable else ref)
+        assert [site for site, _i, _o in sites] == [f"Dropout_{i}" for i in range(len(head._folds))]
+        for i, (site, inp, out) in enumerate(sites):
+            ours = dropout(torch.from_numpy(inp), kwargs["dropout"], True, prng.key(seed),
+                           head._folds[i]).numpy()
+            np.testing.assert_array_equal(ours, out, err_msg=f"{name} {site} seed {seed}")
+            assert 0 < (out == 0).mean() < 1
+        with torch.no_grad():
+            got = head(torch.from_numpy(x), train=True, key=prng.key(seed)).numpy()
+        np.testing.assert_allclose(got, ref, atol=FORWARD_TOL, rtol=FORWARD_TOL)
+        if seed == 0:
+            first = got
+    assert not np.array_equal(first, got)
 
 
 @pytest.mark.parametrize("override", ["parallel=tp2", "parallel=pp2",
