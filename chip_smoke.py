@@ -44,7 +44,16 @@ family at full width (24 x 1024, 16 heads, vocab 42384, seeded):
 tokenizer=biogpt`` (Moses+BPE ids, the text bank, 3 epochs, ``test()``),
 ``evaluate_clip``, ``generate_report`` through the feature-store preset and
 ``serve --once`` ``classify``, and the tower on the card against the CPU at
-tiny width.
+tiny width.  Phase 19 drives the ResNet-50 family at full width (stages
+``(3, 4, 6, 3)``, width 64, 2048-d, ``remat`` on, seeded): ``train
+--config-name train_binary_class_clf networks=clip_resnet50_bert`` (the
+tower's forward and the ``layer4`` backward inside the captured step, 3
+epochs, ``test()``), the stem and ``layer1`` - ``layer3`` bit-unchanged
+while ``layer4`` and the heads moved, ``evaluate_clip``, ``generate_report``
+(the store preset's ConvNeXt, then the ResNet), ``serve --once``
+``classify``, the graphed epoch against the eager one (cuDNN's
+deterministic algorithms pinned for that comparison) and the tower's
+features on the card against the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks what comes out, and times every kernel beside its plain
@@ -53,9 +62,9 @@ the same function, plus the encode programs, ``extract()`` (split into
 decode, device and write seconds), PNG decode (compiled and plain unfilter),
 the global loss, the text bank, the train step, ``test()``, ``generate_report``,
 the socket server's ms per request, studies/s of ``encode_studies``, the
-graphed and eager train steps and the BioGPT run's bank, step, ``test()`` and
-report seconds.  The times phase keeps its number, 11, and runs after phases
-12-18.
+graphed and eager train steps, the BioGPT and ResNet runs' bank, step,
+``test()``, ``evaluate_clip``, report and ``serve --once`` seconds.  The
+times phase keeps its number, 11, and runs after phases 12-19.
 
 Imports nothing of JAX or of ``mmgclip_tpu``.  Exits non-zero, without the
 result line, when CUDA is unavailable or any phase fails.  The last line is
@@ -1243,7 +1252,19 @@ def graph_vs_eager(device, cfg, label, epochs=2):
     graphed epoch starts with its eager warm-up steps and the capture).
     Losses and the trainable params must agree within ``GRAPH_REL_TOL``; a
     last graphed epoch runs under ``torch.profiler`` for the device time of a
-    step.  -> {"graph_ms", "eager_ms", "bit_equal", "kernel_ms"} per step."""
+    step.  Both runs pin cuDNN's deterministic algorithms: its default
+    weight-gradient algorithms (the ResNet's ``layer4`` backward) sum in an
+    order that varies from run to run, graph or not.  -> {"graph_ms",
+    "eager_ms", "bit_equal", "kernel_ms"} per step."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return _graph_vs_eager(device, cfg, label, epochs)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def _graph_vs_eager(device, cfg, label, epochs):
     from mmgclip_tpu_torch.train import build_experiment
     from mmgclip_tpu_torch.training.optim import set_learning_rate
     from mmgclip_tpu_torch.weights import clip_params_tree, flatten_tree
@@ -2312,6 +2333,199 @@ def phase_biogpt(device, tmp, smi, tree, text=None, shapes=FFDM_SHAPES, tower=RE
     return times
 
 
+# ----------------------------------------------------------------------
+# phase 19: the ResNet-50 family at full width (the tower trains its layer4)
+RESNET_FEATURE_REL_L2 = 1e-5  # the tower's pooled features, card vs CPU, fp32 (TF32 off)
+RESNET_CHECK_ROWS = 8         # rows of the card-vs-CPU tower check
+
+
+def resnet_groups(name):
+    """A trainable name -> its group in the layer-by-layer check."""
+    parts = name.split(".")
+    if parts[0] != "image_encoder":
+        return "heads + logit_scale"
+    return parts[1].split("_")[0] if parts[1].startswith("layer") else "stem"
+
+
+def phase_resnet(device, tmp, smi, tree, micro=False, text=None, shapes=FFDM_SHAPES,
+                 tower=REPORT_TOWER, extra=()):
+    """``train --config-name train_binary_class_clf networks=clip_resnet50_bert``
+    through ``train.run`` on ``tree`` (phase 14's seeded features): ResNet-50
+    as configured (``(3, 4, 6, 3)``, width 64, 2048-d pooled, ``remat`` on;
+    ``micro`` and ``text`` shrink the towers, ``extra`` sets the batch sizes,
+    for the CPU rehearsal) beside BERT, 3 epochs, ``test()``; the stem and
+    ``layer1`` - ``layer3`` bit-unchanged after training while every
+    ``layer4`` and head tensor moved; ``evaluate_clip`` of the stored run
+    (results equal ``test()``'s); ``generate_report`` for one full-field image
+    through the feature-store preset (the tower's kernels per view on the
+    card), then the ResNet; one ``serve --once`` ``classify``; the graphed
+    fused epoch against the eager one from one seeded state (cuDNN's
+    deterministic algorithms pinned for the comparison); on the card the
+    tower's features against the CPU within ``RESNET_FEATURE_REL_L2``.
+    -> times and the run's launch counts."""
+    import contextlib
+    import io
+
+    from mmgclip_tpu_torch import serve
+    from mmgclip_tpu_torch.evaluate_clip import main as evaluate_main
+    from mmgclip_tpu_torch.models.clip import MMGCLIP
+    from mmgclip_tpu_torch.models.resnet import ResNet50Encoder
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.train import run
+    from mmgclip_tpu_torch.utils.tb import read_scalars
+    from mmgclip_tpu_torch.weights import clip_params_tree, flatten_tree
+
+    on_card = device.type == "cuda"
+    cpu_args = [] if on_card else ["--device", str(device)]
+    root = os.path.join(tmp, "resnet")
+    os.makedirs(root)
+    run_dir = os.path.join(root, "run")
+    overrides = ["networks=clip_resnet50_bert", *extra]
+    if micro:
+        overrides.append("networks.image_encoder.config={micro: true}")
+    if text:
+        overrides.append(f"networks.text_encoder.config={text}")
+    cfg = train_config(run_dir, tree, overrides)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    experiment = run(cfg, device=device)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_counts("ResNet training + test() (the key splits of each traced step; 1xLinear512 has "
+                 "no Dropout)", counts, train_launches(experiment))
+    model = experiment.model
+    tower_module = model.image_module
+    if not isinstance(tower_module, ResNet50Encoder) or not tower_module.config.remat:
+        raise AssertionError(f"the image tower is {type(tower_module).__name__} "
+                             f"({getattr(tower_module, 'config', None)}), not ResNet50Encoder with remat")
+    rn = tower_module.config
+    scalars = read_scalars(cfg.base.tensorboard_export_dir)
+    train_loss, val_loss = scalars["loss/train"], scalars["loss/val"]
+    if not (np.isfinite(train_loss).all() and np.isfinite(val_loss).all() and len(train_loss) == 3):
+        raise AssertionError(f"ResNet epoch losses {train_loss} / {val_loss}")
+    if not train_loss[-1] < train_loss[0]:
+        raise AssertionError(f"ResNet train loss did not fall on separable data: {train_loss}")
+    with open(os.path.join(cfg.base.results_export_dir, "results.json")) as fh:
+        tested = json.load(fh)
+    results = tested["BenignMalignantDatasetLabels"]["zeroshot_label_prompt"]
+    params = model.trainable_parameters()
+    trainable = sum(p.numel() for p in params.values() if p.requires_grad)
+    log(f"    ResNet-50 {rn.stage_sizes} width {rn.width} -> {tower_module.output_dimension}-d, remat "
+        f"{rn.remat}; {model.count_parameters()} trainable-tree params, {trainable} with "
+        f"requires_grad (layer4 + heads); batch {cfg.dataloader.train.batch_size}: train loss "
+        f"{train_loss}, val loss {val_loss}, test() accuracy {results['accuracy']}, AUC CI mean "
+        f"{results.get('auc_ci_mean')}")
+
+    # the layer-by-layer check: the init rebuilt from the seed on the CPU
+    init = MMGCLIP(cfg, seed=int(cfg.base.seed), vocab_size=experiment.tokenizer.vocab_size)
+    before, after = flatten_tree(clip_params_tree(init)), flatten_tree(clip_params_tree(model))
+    moved = {}
+    for name in before:
+        moved.setdefault(resnet_groups(name), []).append(not np.array_equal(before[name], after[name]))
+    log("    tensors moved by training, per group: " + ", ".join(
+        f"{group} {sum(flags)}/{len(flags)}" for group, flags in moved.items()))
+    for group, flags in moved.items():
+        want = group in ("layer4", "heads + logit_scale")
+        if (all(flags) if want else not any(flags)):
+            continue
+        raise AssertionError(f"{group}: {sum(flags)} of {len(flags)} tensors moved "
+                             f"({'all' if want else 'none'} should)")
+    if any(p.grad is not None for name, p in params.items() if not p.requires_grad):
+        raise AssertionError("a frozen ResNet parameter holds a gradient")
+
+    steps, ms = experiment.timings["epoch_steps"], experiment.timings["epoch_device_ms"]
+    per_step = [m / n for m, n in zip(ms, steps)]
+    times = {"bank_s": experiment.timings["bank_s"], "test_s": experiment.timings["test_s"],
+             "step_ms": per_step, "run_s": wall, "train_launches": counts}
+    log(f"    times ({smi}): text bank {times['bank_s']:.3f} s (host clock); train step "
+        f"{', '.join(f'{v:.4f}' for v in per_step)} ms per epoch (CUDA events over the fused "
+        f"epoch; the first holds the eager warm-up and the capture); test() {times['test_s']:.3f} s; "
+        f"run() {wall:.1f} s (host clock)")
+
+    # the tower's work in one train step, counted from the shapes: the forward,
+    # then the layer4 backward with its remat recompute (the heads add <1%)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    rows = experiment._feats_bank[:int(cfg.dataloader.train.batch_size)]
+    with FlopCounterMode(display=False) as forward, torch.no_grad():
+        tower_module(rows)
+    with FlopCounterMode(display=False) as step:
+        tower_module(rows).sum().backward()
+    tower_module.zero_grad(set_to_none=True)
+    times["step_gflop"] = step.get_total_flops() / 1e9
+    line = (f"    the tower's work a step of {rows.shape[0]} rows (torch.utils.flop_counter): forward "
+            f"{forward.get_total_flops() / 1e9:.1f} GFLOP, forward + layer4 backward with its remat "
+            f"recompute {times['step_gflop']:.1f} GFLOP")
+    if on_card:
+        fp32 = peaks_for(torch.cuda.get_device_name(0))["fp32"]
+        line += (f"; bound {times['step_gflop'] * 1e9 / fp32 * 1e3:.3f} ms at the fp32 rate, the "
+                 f"graphed step {times['step_gflop'] / per_step[-1]:.2f} TFLOP/s ({smi})")
+    log(line)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    evaluate_main(["--experiment_path", run_dir, "--run_name", "replay", *cpu_args])
+    times["evaluate_s"] = time.perf_counter() - t0
+    check_counts("evaluate_clip over the ResNet run", launch_counts(), {})
+    with open(os.path.join(run_dir, "replay", "results.json")) as fh:
+        if json.load(fh) != tested:
+            raise AssertionError("evaluate_clip's results.json differs from test()'s (ResNet run)")
+    log(f"    evaluate_clip of the ResNet run: results.json equal to test()'s, "
+        f"{times['evaluate_s']:.2f} s (host clock, {smi})")
+
+    report_dir, _image, _views = report_run(root, run_dir, shapes, {**tower, "micro": micro})
+    reset_launch_counts()
+    decisions, report, times["report_s"] = run_generate_report(device, report_dir, "--image_id",
+                                                               REPORT_IMAGE)
+    check_counts("generate_report --image_id (the ResNet over the feature-store preset's feature)",
+                 launch_counts(), PER_VIEW_LAUNCHES if on_card else {})
+    if not report or not decisions:
+        raise AssertionError(f"generate_report over the ResNet run: {decisions}, {report!r}")
+    log(f"    generate_report --image_id {REPORT_IMAGE} ({shapes[0][0]}x{shapes[0][1]}, ConvNeXt "
+        f"store preset -> 768-d -> ResNet): {times['report_s']:.2f} s with the model load (host "
+        f"clock, {smi}); launches {PER_VIEW_LAUNCHES if on_card else {}}; {report[:80]}...")
+
+    feats = np.random.default_rng(19).standard_normal((3, 768)).astype("<f4")
+    request = {"op": "classify", "features_b64": base64.b64encode(feats.tobytes()).decode(),
+               "features_rows": 3, "class_list": ["Finding suggesting benign.",
+                                                  "Finding suggesting malignant."], "id": 19}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--experiment_path", run_dir, *cpu_args, "--once", json.dumps(request)])
+    times["serve_s"] = time.perf_counter() - t0
+    response = json.loads(out.getvalue().strip().splitlines()[-1])
+    probs = np.asarray(response.get("result", {}).get("classes_similarities", []))
+    if response.get("id") != 19 or probs.shape != (3, 2) or not np.isfinite(probs).all() \
+            or not np.allclose(probs.sum(1), 1.0, atol=1e-5):
+        raise AssertionError(f"serve --once classify over the ResNet run: {response}")
+    log(f"    serve --once classify over the ResNet run: argmax {response['result']['similarities_argmax']} "
+        f"in {times['serve_s']:.2f} s with the model load (host clock, {smi})")
+
+    times["graph"] = graph_vs_eager(device, train_config(os.path.join(root, "graph_check"), tree,
+                                                         overrides),
+                                    f"ResNet-50 {rn.stage_sizes} x{rn.width} + layer4 backward "
+                                    f"(cuDNN deterministic; {smi})")
+
+    if on_card:
+        rows = experiment._feats_bank[:RESNET_CHECK_ROWS]
+        cpu_tower = ResNet50Encoder(rn)
+        cpu_tower.load_state_dict({k: v.cpu() for k, v in tower_module.state_dict().items()})
+        with torch.no_grad():
+            got = tower_module(rows).cpu()
+            want = cpu_tower(rows.cpu())
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        log(f"    ResNet-50 pooled features of {RESNET_CHECK_ROWS} trained-run rows, card vs CPU "
+            f"(fp32, TF32 off): rel L2 {rel:.3e} (tol {RESNET_FEATURE_REL_L2:.0e}), max_abs "
+            f"{(got - want).abs().max().item():.3e}")
+        if not rel <= RESNET_FEATURE_REL_L2:
+            raise AssertionError(f"the ResNet tower on the card differs from the CPU: rel L2 {rel}")
+        times["card_vs_cpu_rel_l2"] = rel
+    return times
+
+
 def timing_ring(device, peaks, smi, launches, max_err):
     """The ring per (P, shape, dtype) beside its bound, its plain version and
     the library pair (torch.cat, then a copy into each output), all as device
@@ -2598,13 +2812,21 @@ def main() -> int:
             "test(), evaluate_clip, generate_report and serve --once over the run")
         phase_biogpt(device, tmp.name, smi, train_tree)
 
-        # 11. times (after 12-17) --------------------------------------------------------
+        # 19. the ResNet-50 family ------------------------------------------------------
+        log("[19] ResNet-50 at full width: train (networks=clip_resnet50_bert, layer4 trains inside "
+            "the graphed step), test(), evaluate_clip, generate_report and serve --once over the run")
+        resnet_times = phase_resnet(device, tmp.name, smi, train_tree)
+
+        # 11. times (after 12-19) --------------------------------------------------------
         log("[11] times (CUDA events, median of 10 after 3 warmup unless stated)")
         kernels = timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts,
                                block_err, flash_err)
         kernels += timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts)
         kernels.append(timing_ring(device, peaks, smi, ring_launches, ring_err))
-        kernels += timing_dropout(device, peaks, exam_times["train_launches"], dropout_err)
+        split_launches = {name: exam_times["train_launches"].get(name, 0)
+                          + resnet_times["train_launches"].get(name, 0)
+                          for name in ("threefry2x32", "dropout")}
+        kernels += timing_dropout(device, peaks, split_launches, dropout_err)
         timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_towers,
                         dw_pixels, tree, smi)
         timing_reports(device, report, smi)

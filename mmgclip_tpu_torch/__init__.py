@@ -5,8 +5,8 @@ counterpart of ``mmgclip_tpu/models/convnext.py``) and imports nothing of
 it.  Hand-written CUDA kernels live in ``csrc/`` and are built at first use
 (``ops/_build.py``).  Entry points run on the CUDA card unless the caller
 passes ``device="cpu"``.  The names below are the JAX package's facade
-(``mmgclip_tpu/__init__.py``) where the port has them; the plotting helpers
-are not ported yet.
+(``mmgclip_tpu/__init__.py``); the plotting helpers import matplotlib only
+when called.
 """
 
 from .config import Config, compose, load_config, recompose, save_snapshot
@@ -46,6 +46,7 @@ from .prompts import (
 )
 from .training.experiment import ClassifierExperiment, create_experiment
 from .utils import logger
+from .utils.plot import plot_cv2_image, plot_dataloader_batch, pprint
 from .utils.seeding import seeding
 
 __all__ = [
@@ -62,4 +63,5 @@ __all__ = [
     "generate_gtr_prompt_sentence", "generate_label_prompt_report",
     "generate_label_prompt_sentence", "seed_prompt_rng",
     "ClassifierExperiment", "create_experiment", "logger", "seeding", "find_similar_item",
+    "plot_dataloader_batch", "plot_cv2_image", "pprint",
 ]

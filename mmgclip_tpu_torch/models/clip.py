@@ -1,20 +1,22 @@
 """MMGCLIP in PyTorch (port of mmgclip_tpu/models/clip.py).
 
 The dual-encoder CLIP head over frozen towers: stored 768-d ConvNeXt
-features are flattened (the ``ConvNextTiny`` feature path), the frozen text
-tower (BERT, or the causal BioGPT-family ``CausalTextEncoder``) is
-EOS-pooled, each side goes through its projection head, then
-L2-normalization and the learnable logit scale.  Parameters live on the
-module (``weights.load_clip_params`` loads the JAX trainable tree,
-``weights.clip_params_tree`` writes it back).  The text tower is frozen
-(``requires_grad=False``); the trainable set is the heads plus
-``logit_scale`` (``trainable_parameters``), as in the JAX package.
+features are flattened (the ``ConvNextTiny`` feature path) or re-encoded by
+the ResNet-50 tower (``ResNet50Encoder``, the ablation path, whose
+``layer4`` trains), the frozen text tower (BERT, or the causal
+BioGPT-family ``CausalTextEncoder``) is EOS-pooled, each side goes through
+its projection head, then L2-normalization and the learnable logit scale.
+Parameters live on the module (``weights.load_clip_params`` loads the JAX
+trainable tree, ``weights.clip_params_tree`` writes it back).  The text
+tower is frozen (``requires_grad=False``); the trainable set is the heads,
+``logit_scale`` and, with the ResNet, every ``image_encoder`` parameter
+(``trainable_parameters``), as in the JAX package; of the ResNet only
+``layer4`` has ``requires_grad`` (``training.optim.resnet_finetune_mask``),
+so the backward stops there.
 ``forward(train=True)`` splits the step's threefry key three ways (image
 head, text head, second text head) and applies flax's head dropout under
 them, and adds the T2T branch for ``MMGCLIPLoss``.
 ``PromptClassifier`` is the zero-shot wrapper over a model.
-
-Not ported yet (ROADMAP.md): the trainable ResNet-50 image tower.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..utils.logging import logger
 from .bert import BertConfig, BertEncoder, eos_pool, trim_padded_tail
 from .gpt import CausalTextEncoder, GPTConfig
 from .projections import get_projection_head
+from .resnet import ResNet50Encoder, ResNetConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "f32": torch.float32,
@@ -81,14 +84,18 @@ class MMGCLIP(nn.Module):
         super().__init__()
         self.config = config
         self.seed = seed
-        image_encoder_name = config.networks.image_encoder.name
-        if image_encoder_name != "ConvNextTiny":
-            raise NotImplementedError(
-                f"image encoder {image_encoder_name!r} is not ported yet; the port "
-                "serves the ConvNextTiny feature path (ROADMAP.md, queue 1 item 2: the "
-                "ResNet-50 tower)")
-        self.image_encoder_name = image_encoder_name
+        self.image_encoder_name = config.networks.image_encoder.name
         self.image_features_dimension = int(config.networks.image_encoder.image_features_dimension)
+        # the optional trainable image tower (the ResNet-50 ablation path);
+        # ``micro`` is the key the ConvNeXt encode tower reads too
+        self.image_module = None
+        image_tower_dim = self.image_features_dimension
+        if self.image_encoder_name == "ResNet50Encoder":
+            overrides = config.get_path("networks.image_encoder.config", {}) or {}
+            rn_config = ResNetConfig.micro() if overrides.get("micro") else ResNetConfig.resnet50()
+            self.image_module = ResNet50Encoder(rn_config, torch.Generator().manual_seed(seed + 1))
+            image_tower_dim = self.image_module.output_dimension  # width * 32
+            logger.info("Using ResNet50Encoder image tower.")
 
         # frozen text tower: BERT-family, or causal (BioGPT-family) by name
         text_encoder_name = str(config.get_path("networks.text_encoder.name", "BertEncoder"))
@@ -124,7 +131,7 @@ class MMGCLIP(nn.Module):
             extra = {key: config.projection.config[key] for key in getattr(head_cls, "EXTRA_KNOBS", ())
                      if key in config.projection.config}
             self.image_projection = head_cls(
-                self.image_features_dimension, proj_dim, dropout,
+                image_tower_dim, proj_dim, dropout,
                 generator=torch.Generator().manual_seed(seed + 2), **extra)
             self.text_projection = head_cls(
                 self.text_output_dimension, proj_dim, dropout,
@@ -134,16 +141,25 @@ class MMGCLIP(nn.Module):
         self.logit_scale = nn.Parameter(
             torch.tensor(np.log(1.0 / temperature), dtype=torch.float32))
         self.loss_name = str(config.get_path("loss.config.loss_name", "CLIPLoss"))
+        if self.image_module is not None:
+            from ..training.optim import resnet_finetune_mask
+
+            params = self.trainable_parameters()
+            for name, trainable in resnet_finetune_mask(params).items():
+                params[name].requires_grad_(trainable)
 
     def trainable_parameters(self) -> Dict[str, nn.Parameter]:
-        """Dotted name -> parameter of the heads and ``logit_scale``: the JAX
-        ``trainable_params`` tree, flattened."""
+        """Dotted name -> parameter of the heads, ``logit_scale`` and the
+        ResNet tower (``image_encoder.*``, its frozen stages included): the
+        JAX ``trainable_params`` tree, flattened."""
         out: Dict[str, nn.Parameter] = {}
         for name in ("image_projection", "text_projection"):
             head = getattr(self, name)
             if head is not None:
                 out.update({f"{name}.{key}": p for key, p in head.named_parameters()})
         out["logit_scale"] = self.logit_scale
+        if self.image_module is not None:
+            out.update({f"image_encoder.{key}": p for key, p in self.image_module.named_parameters()})
         return out
 
     def count_parameters(self) -> int:
@@ -156,8 +172,11 @@ class MMGCLIP(nn.Module):
         return self.logit_scale.device
 
     def apply_image_tower(self, image_features: torch.Tensor) -> torch.Tensor:
-        """Stored ConvNeXt features -> flat [n, d]."""
-        return image_features.reshape(image_features.shape[0], -1)
+        """Stored features (``[n, D]`` or ``[n, 1, D, 1, 1]``) -> flat ``[n, D]``;
+        the ResNet path re-encodes them to ``[n, width * 32]`` (BatchNorm on
+        its running statistics: PARITY.md #8, ``models/resnet.py``)."""
+        flat = image_features.reshape(image_features.shape[0], -1)
+        return flat if self.image_module is None else self.image_module(flat)
 
     def apply_text_tower(self, text_tokens: Dict) -> torch.Tensor:
         """Frozen BERT -> EOS pooling.  Token arrays (numpy or tensors) get

@@ -19,7 +19,9 @@ Rebuild of the reference train/validate/test life cycle
   threefry key as an int64 ``[2]`` tensor on the device: each step splits it
   (``jax.random.split``) and copies the new key into it in place, inside the
   graph, so replays draw JAX's masks and checkpoints carry the key in JAX's
-  form (``rng_key``); a capture that fails raises;
+  form (``rng_key``); a capture that fails raises.  On the ResNet path the
+  captured step holds the tower's forward and the ``layer4`` backward (the
+  frozen stages have ``requires_grad=False``; AdamW skips them);
 * a sampler switches to the per-batch loop over the loader;
 * validation probes (malignancy / mass-shape / BI-RADS zero-shot AUCs, with
   the pooled probe prompts cached) match the reference's metric set.
@@ -53,7 +55,7 @@ from ..utils.seeding import create_directory_if_not_exists
 from ..utils.tb import ScalarWriter
 from .checkpoint import load_checkpoint
 from .early_stopping import EarlyStopper
-from .optim import create_optimizer, create_scheduler, set_learning_rate
+from .optim import create_optimizer, create_scheduler, resnet_finetune_mask, set_learning_rate
 
 
 GRAPH_WARMUP_STEPS = 3  # eager steps before the capture (real steps of the run)
@@ -139,9 +141,13 @@ class ClassifierExperiment:
         self.criterion = create_loss(self.loss_name)
         logger.info(f"Using {self.loss_name} loss.")
 
+        # the ResNet fine-tune: only layer4 of the tower trains (the masked chain)
+        freeze_mask = (resnet_finetune_mask(self.params)
+                       if self.model.image_encoder_name == "ResNet50Encoder" else None)
         self.optimizer = create_optimizer(self.params,
                                           float(config.optimizer.config.learning_rate),
-                                          float(config.optimizer.config.weight_decay))
+                                          float(config.optimizer.config.weight_decay),
+                                          freeze_mask=freeze_mask)
         self.scheduler = create_scheduler(config)
         logger.info(f"Using {type(self.scheduler).__name__} scheduler.")
 

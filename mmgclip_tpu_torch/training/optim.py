@@ -68,30 +68,42 @@ class AdamW:
             p.grad = None
 
     def state_dict(self) -> Dict:
-        """Host copy in the port's own layout (a tree of numpy arrays)."""
+        """Host copy in the port's own layout (a tree of numpy arrays); a
+        frozen name's moments are empty dicts, as optax's ``MaskedNode``
+        leaves are in the masked chain's state."""
         def host(t):
             return t.detach().cpu().numpy()
 
+        def moments(slot):
+            return {k: host(v) if self.trainable[k] else {} for k, v in slot.items()}
+
         return {"count": host(self.count),
                 "hyperparams": {k: host(v) for k, v in self.hyperparams.items()},
-                "mu": {k: host(v) for k, v in self.mu.items()},
-                "nu": {k: host(v) for k, v in self.nu.items()}}
+                "mu": moments(self.mu), "nu": moments(self.nu)}
 
     def load_state_dict(self, state: Dict) -> None:
-        """Copies into the live tensors (a captured graph reads those)."""
+        """Copies into the live tensors (a captured graph reads those).  A
+        frozen name's moments may be an empty dict or absent: they are
+        zeroed, and the update never reads them."""
         self.count.fill_(int(state["count"]))
         for key, value in state["hyperparams"].items():
             self.hyperparams[key].fill_(float(value))
         for slot in ("mu", "nu"):
             target = getattr(self, slot)
-            if set(state[slot]) != set(target):
-                raise KeyError(f"optimizer state {slot} keys {sorted(state[slot])} != {sorted(target)}")
-            for key, value in state[slot].items():
-                value = torch.as_tensor(np.asarray(value))
-                if tuple(value.shape) != tuple(target[key].shape):
+            given = {k: v for k, v in state[slot].items() if not isinstance(v, dict)}
+            trainable = {k for k in target if self.trainable[k]}
+            if not (trainable <= set(given) and set(state[slot]) <= set(target)):
+                raise KeyError(f"optimizer state {slot} keys {sorted(state[slot])} do not cover "
+                               f"the trainable {sorted(trainable)} within {sorted(target)}")
+            for key, tensor in target.items():
+                if key not in given:
+                    tensor.zero_()
+                    continue
+                value = torch.as_tensor(np.asarray(given[key]))
+                if tuple(value.shape) != tuple(tensor.shape):
                     raise ValueError(f"optimizer state {slot}.{key}: shape {tuple(value.shape)} "
-                                     f"!= {tuple(target[key].shape)}")
-                target[key].copy_(value)
+                                     f"!= {tuple(tensor.shape)}")
+                tensor.copy_(value)
 
 
 def create_optimizer(params: Dict[str, torch.nn.Parameter], learning_rate: float,

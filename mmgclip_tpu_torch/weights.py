@@ -12,9 +12,13 @@ mapping is by path: the flax path ``stage_0/dwconv_kernel`` is the
 * the causal (BioGPT-family) tower's stacked tree (``qkv_kernel`` ``[L, H,
   3H]``, ``embed_tokens``, ``embed_positions``, ``final_norm``);
 * the trainable CLIP tree (``image_projection``, ``text_projection``,
-  ``logit_scale``), every head included: the BatchNorm ``ProjectionHead``'s
-  ``batch_stats`` go to its buffers (``load_head_state``), the MoE head's
-  ``[E, ...]`` expert stacks by name.
+  ``logit_scale`` and, on the ResNet path, ``image_encoder``), every head
+  included: the BatchNorm ``ProjectionHead``'s ``batch_stats`` go to its
+  buffers (``load_head_state``), the MoE head's ``[E, ...]`` expert stacks
+  by name;
+* the ResNet-50 tower's HWIO conv kernels and BatchNorm parameters by name,
+  its running statistics (the JAX model's ``image_variables["batch_stats"]``,
+  held on the model, not in a checkpoint) to its buffers.
 
 Every key, shape and count must match: a mismatch raises.
 """
@@ -78,10 +82,13 @@ def load_head_state(module: nn.Module, collections: Dict[str, Any]) -> nn.Module
 
 @torch.no_grad()
 def load_clip_params(model: nn.Module, trainable: Dict[str, Any],
-                     head_state: Optional[Dict[str, Any]] = None) -> nn.Module:
-    """The JAX ``MMGCLIP.trainable_params`` tree -> ``MMGCLIP``'s heads and
-    logit scale, in place.  ``head_state``: the JAX model's ``_head_state``
-    (``{"image_projection": {"batch_stats": ...}, ...}``)."""
+                     head_state: Optional[Dict[str, Any]] = None,
+                     image_state: Optional[Dict[str, Any]] = None) -> nn.Module:
+    """The JAX ``MMGCLIP.trainable_params`` tree -> ``MMGCLIP``'s heads, logit
+    scale and ResNet tower, in place.  ``head_state``: the JAX model's
+    ``_head_state`` (``{"image_projection": {"batch_stats": ...}, ...}``);
+    ``image_state``: the ResNet's non-parameter collections, the JAX model's
+    ``image_variables`` without ``params`` (``{"batch_stats": ...}``)."""
     expected = {"logit_scale"}
     for name in ("image_projection", "text_projection"):
         head = getattr(model, name)
@@ -90,6 +97,13 @@ def load_clip_params(model: nn.Module, trainable: Dict[str, Any],
             load_flax_tree(head, trainable[name])
             if head_state is not None:
                 load_head_state(head, head_state.get(name, {}))
+    if model.image_module is not None:
+        expected.add("image_encoder")
+        load_flax_tree(model.image_module, trainable["image_encoder"])
+        if image_state is not None:
+            load_head_state(model.image_module, image_state)
+    elif image_state is not None:
+        raise KeyError("image_state given, but the model has no ResNet tower")
     if set(trainable) != expected:
         raise KeyError(f"trainable tree keys {sorted(trainable)} != {sorted(expected)}")
     model.logit_scale.copy_(torch.as_tensor(np.array(trainable["logit_scale"], np.float32)))
@@ -110,13 +124,15 @@ def module_tree(module: nn.Module) -> Dict[str, Any]:
 
 
 def clip_params_tree(model: nn.Module) -> Dict[str, Any]:
-    """``MMGCLIP``'s heads and logit scale -> the JAX ``trainable_params``
-    tree of numpy arrays (the inverse of ``load_clip_params``; what the
-    checkpoint writer stores)."""
+    """``MMGCLIP``'s heads, logit scale and ResNet tower -> the JAX
+    ``trainable_params`` tree of numpy arrays (the inverse of
+    ``load_clip_params``; what the checkpoint writer stores)."""
     tree: Dict[str, Any] = {}
     for name in ("image_projection", "text_projection"):
         head = getattr(model, name)
         if head is not None:
             tree[name] = module_tree(head)
     tree["logit_scale"] = model.logit_scale.detach().cpu().numpy().copy()
+    if model.image_module is not None:
+        tree["image_encoder"] = module_tree(model.image_module)
     return tree

@@ -22,7 +22,9 @@ against an unbroken run, within 1e-6 relative (losses and params); the exam
 family's ``encode_studies`` launching the store preset's kernels per
 program call; the threefry and dropout kernels bit-equal to their plain
 versions (``utils/prng.py``): keys, masks, outputs and gradients, also
-replayed in a CUDA graph.
+replayed in a CUDA graph; the micro ResNet tower on the card against the
+CPU within 1e-5 relative L2 (features and ``layer4`` gradients), and its
+fused epoch graphed and resumed after the capture as above.
 """
 
 import numpy as np
@@ -605,27 +607,36 @@ TINY_TEXT = ("networks.text_encoder.config={hidden_size: 64, num_hidden_layers: 
              "num_attention_heads: 4, intermediate_size: 128}")
 
 
+RESNET_MICRO = ["networks=clip_resnet50_bert", "networks.image_encoder.config={micro: true}"]
+
+
 def small_config(family, root, name, extra=()):
-    """A reduced-width config of either training family, dropout on."""
+    """A reduced-width config of a training family, dropout on: ``binary``,
+    ``resnet`` (the binary family with the micro ResNet tower, whose
+    ``layer4`` trains) or ``exam``."""
     import chip_smoke
 
     run_dir = str(root / name)
-    if family == "binary":
+    if family in ("binary", "resnet"):
         tree = chip_smoke.write_train_tree(str(root / f"{name}_tree"), 24)
         return chip_smoke.train_config(run_dir, tree, [
             TINY_TEXT, "dataloader.train.batch_size=8", "dataloader.valid.batch_size=4",
-            "dataloader.test.batch_size=4", *extra])
+            "dataloader.test.batch_size=4", *(RESNET_MICRO if family == "resnet" else []), *extra])
     reports_csv, gtr_csv = chip_smoke.write_exam_training(str(root / f"{name}_data"), [], 64)
     return chip_smoke.exam_config(run_dir, reports_csv, gtr_csv, [
         TINY_TEXT, "loss=mmgclip", "dataloader.train.batch_size=8", "dataloader.valid.batch_size=4",
         *extra])
 
 
-@pytest.mark.parametrize("family", ["binary", "exam"])
+@pytest.mark.parametrize("family", ["binary", "exam", "resnet"])
 def test_graphed_epoch_matches_the_eager_epoch(cuda_device, tmp_path, family):
     """``chip_smoke.graph_vs_eager``: two epochs graphed (the first with its
     eager warm-up steps and the capture) against two eager epochs from the
-    same seeded state, dropout on: losses and params within 1e-6 relative."""
+    same seeded state, dropout on: losses and params within 1e-6 relative.
+    With the ResNet the captured step holds the tower's forward and the
+    ``layer4`` backward (the bottlenecks recomputed under ``remat``); both
+    runs pin cuDNN's deterministic algorithms, whose default weight-gradient
+    algorithms sum in an order that varies between runs."""
     import chip_smoke
 
     out = chip_smoke.graph_vs_eager(cuda_device, small_config(family, tmp_path, "run"), family)
@@ -638,17 +649,36 @@ def test_resume_after_capture_matches_an_unbroken_run(cuda_device, tmp_path):
     replay the same graph against the restored tensors and end where an
     unbroken run ends (losses and params within 1e-6 relative; dropout on,
     the dropout key restored from the checkpoint)."""
+    resume_after_capture(cuda_device, tmp_path, "binary")
+
+
+def test_resnet_resume_after_capture_matches_an_unbroken_run(cuda_device, tmp_path):
+    """The same with the micro ResNet tower: the masked optimizer chain is
+    restored in place into the moments the captured step reads, and the
+    frozen stages keep no gradient.  Both runs pin cuDNN's deterministic
+    algorithms (see ``test_graphed_epoch_matches_the_eager_epoch``)."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        broken = resume_after_capture(cuda_device, tmp_path, "resnet")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    frozen = [p for p in broken.params.values() if not p.requires_grad]
+    assert frozen and all(p.grad is None for p in frozen)
+
+
+def resume_after_capture(cuda_device, tmp_path, family):
     from mmgclip_tpu_torch.train import build_experiment
     from mmgclip_tpu_torch.training.checkpoint import load_checkpoint
     from mmgclip_tpu_torch.utils.tb import ScalarWriter, read_scalars
     from mmgclip_tpu_torch.weights import clip_params_tree, flatten_tree
 
     extra = ["dataloader.valid.shuffle=false"]
-    straight_cfg = small_config("binary", tmp_path, "straight", extra)
+    straight_cfg = small_config(family, tmp_path, "straight", extra)
     straight = build_experiment(straight_cfg, device=cuda_device)
     straight.run()
 
-    cfg = small_config("binary", tmp_path, "broken", extra)
+    cfg = small_config(family, tmp_path, "broken", extra)
     broken = build_experiment(cfg, device=cuda_device)
     cfg.scheduler.config.epochs = 2  # stop early; the schedule keeps its 3-epoch total
     broken.run()
@@ -676,6 +706,44 @@ def test_resume_after_capture_matches_an_unbroken_run(cuda_device, tmp_path):
     ours, theirs = (flatten_tree(clip_params_tree(e.model)) for e in (broken, straight))
     for key, value in theirs.items():
         np.testing.assert_allclose(ours[key], value, rtol=1e-6, atol=1e-7, err_msg=key)
+    return broken
+
+
+def test_resnet_tower_on_the_card_matches_the_cpu(cuda_device):
+    """The micro ResNet (seeded, running statistics moved off 0 / 1) on the
+    card against the CPU, fp32 with TF32 off: forward features and the
+    ``layer4`` gradients within 1e-5 relative L2, the frozen stages without
+    gradients."""
+    from mmgclip_tpu_torch.models.resnet import ResNet50Encoder, ResNetConfig
+
+    cpu = ResNet50Encoder(ResNetConfig.micro(), torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        for name, buffer in cpu.named_buffers():
+            low, high = (0.5, 1.5) if name.endswith("var") else (-0.3, 0.3)
+            buffer.copy_(torch.from_numpy(rng.uniform(low, high, buffer.shape).astype(np.float32)))
+    for name, p in cpu.named_parameters():
+        p.requires_grad_(name.startswith("layer4"))
+    card = ResNet50Encoder(ResNetConfig.micro())
+    card.load_state_dict(cpu.state_dict())
+    for name, p in card.named_parameters():
+        p.requires_grad_(name.startswith("layer4"))
+    card.to(cuda_device)
+    for width in (768, 37):
+        x = torch.from_numpy(rng.standard_normal((6, width)).astype(np.float32))
+        outs = []
+        for tower, dev in ((cpu, "cpu"), (card, cuda_device)):
+            tower.zero_grad(set_to_none=True)
+            y = tower(x.to(dev))
+            y.square().sum().backward()
+            outs.append((y.detach().cpu(), {k: None if p.grad is None else p.grad.cpu()
+                                            for k, p in tower.named_parameters()}))
+        (want, want_grads), (got, got_grads) = outs
+        assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-5
+        for key, grad in want_grads.items():
+            assert (grad is None) == (got_grads[key] is None) == (not key.startswith("layer4")), key
+            if grad is not None:
+                assert float(torch.linalg.norm(got_grads[key] - grad) / torch.linalg.norm(grad)) <= 1e-5, key
 
 
 def test_encode_studies_launches_the_store_kernels(cuda_device, tmp_path):

@@ -7,8 +7,9 @@ have, and a subprocess with those packages blocked in ``sys.modules`` (and
 matplotlib and tensorboard, which the evaluator and the scalar writer only
 try) imports every port module, runs the micro serving path on the CPU,
 trains, tests and re-evaluates a tiny run through the ``train`` and
-``evaluate_clip`` entry points, generates its report for one image through
-``generate_report``, evaluates the tower's classifier head through
+``evaluate_clip`` entry points, compares the two result sets through
+``tools.compare_runs`` (its PNGs skipped), runs the micro ResNet-50 model,
+generates its report for one image through ``generate_report``, evaluates the tower's classifier head through
 ``evaluate_cnn``, answers a ping on the unix-socket server, and builds the
 exam family's supervision (``StudyReportDataset`` over a CSV the port
 writes, the report pipeline's ``post_process_translated_report``).
@@ -61,8 +62,13 @@ def test_port_runs_with_the_missing_packages_blocked(tmp_path):
         import importlib, json, os, pkgutil, base64
         sys.path.insert(0, {REPO!r})
         import mmgclip_tpu_torch
+        walked = set()
         for info in pkgutil.walk_packages(mmgclip_tpu_torch.__path__, "mmgclip_tpu_torch."):
             importlib.import_module(info.name)
+            walked.add(info.name)
+        new = {{"mmgclip_tpu_torch.models.resnet", "mmgclip_tpu_torch.utils.plot",
+               "mmgclip_tpu_torch.tools.compare_runs"}}
+        assert new <= walked, new - walked
         import chip_smoke
         import numpy as np
         from mmgclip_tpu_torch.serving import InferenceEngine
@@ -94,6 +100,24 @@ def test_port_runs_with_the_missing_packages_blocked(tmp_path):
         results = [json.load(open(os.path.join(run_dir, name, "results.json")))
                    for name in ("results", "replay")]
         assert results[0] == results[1] and results[0]["BenignMalignantDatasetLabels"], results
+        from mmgclip_tpu_torch.tools import compare_runs
+        compared = compare_runs.main([run_dir, os.path.join(run_dir, "replay"), "--out",
+                                      os.path.join({str(tmp_path)!r}, "comparison")])
+        assert compared["roc_overlays"] == [] and compared["radar"] is None, compared
+        assert sorted(os.listdir(os.path.join({str(tmp_path)!r}, "comparison"))) == [
+            "comparison.csv", "comparison.md", "comparison.txt"]
+        import torch
+        from mmgclip_tpu_torch.config import compose
+        from mmgclip_tpu_torch.models.clip import MMGCLIP
+        resnet = MMGCLIP(compose(os.path.join({REPO!r}, "configs"), "train_binary_class_clf",
+                                 ["networks=clip_resnet50_bert",
+                                  "networks.image_encoder.config={{micro: true}}",
+                                  "networks.text_encoder.config={{hidden_size: 32, "
+                                  "num_hidden_layers: 1, num_attention_heads: 2, "
+                                  "intermediate_size: 64}}"], run_dir=run_dir), vocab_size=64)
+        with torch.no_grad():
+            out = resnet({{"image_features": torch.ones(2, 768)}}, text_features=torch.ones(2, 32))
+        assert out["logits_per_image"].shape == (2, 2)
 
         from mmgclip_tpu_torch import evaluate_cnn, generate_report
         decisions, text = generate_report.main(["--experiment_path", run_dir, "--image_id",
