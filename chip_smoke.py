@@ -53,7 +53,20 @@ while ``layer4`` and the heads moved, ``evaluate_clip``, ``generate_report``
 (the store preset's ConvNeXt, then the ResNet), ``serve --once``
 ``classify``, the graphed epoch against the eager one (cuDNN's
 deterministic algorithms pinned for that comparison) and the tower's
-features on the card against the CPU.
+features on the card against the CPU.  Phase 20 starts the port from the
+reference's torch artifacts, synthesized from a seed: a ConvNeXt-Tiny
+classifier traced to TorchScript from plain ``nn`` layers under
+torchvision's names and an HF BERT-base snapshot (``.bin`` and
+``.safetensors``).  It runs ``tools.convert_convnext --verify`` on the card
+(and the converted tower against the TorchScript module on a 2304 x 1920
+bucket), ``tools.convert_bert`` from both files (byte-equal),
+``tools.reproduce`` over 16 + 16 full-field PNGs (convert, encode, train,
+``test()``, report), the store preset's int8 and fused-glue encodes over the
+converted weights (zero-shot AUC within phase 15's 0.005 of the plain
+store's) and ``generate_report`` through the int8 preset (the plain tower's
+decisions), ``tools.tsne_eval`` and the t-SNE alone at 4,096 and 16,384
+points (card vs CPU at 300), then ``data_efficiency``, ``eda``,
+``parity_harness`` and ``demo_run``.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks what comes out, and times every kernel beside its plain
@@ -63,8 +76,10 @@ decode, device and write seconds), PNG decode (compiled and plain unfilter),
 the global loss, the text bank, the train step, ``test()``, ``generate_report``,
 the socket server's ms per request, studies/s of ``encode_studies``, the
 graphed and eager train steps, the BioGPT and ResNet runs' bank, step,
-``test()``, ``evaluate_clip``, report and ``serve --once`` seconds.  The
-times phase keeps its number, 11, and runs after phases 12-19.
+``test()``, ``evaluate_clip``, report and ``serve --once`` seconds, and
+phase 20's seconds per step.  The times phase keeps its number, 11, and
+runs after phases 12-20; each kernel's row of the ``kernels`` line also
+carries its launches in phase 20 (``phase20_launches``).
 
 Imports nothing of JAX or of ``mmgclip_tpu``.  Exits non-zero, without the
 result line, when CUDA is unavailable or any phase fails.  The last line is
@@ -1550,15 +1565,14 @@ def gate_store(device, tmp, tree, checkpoints, tag, knobs=None, expected=()):
     return features
 
 
-def gate_aucs(device, tmp, tree, checkpoints, tag, features):
-    """Zero-shot AUC per prompt of the shared checkpoint over one store (the
-    whole dataset, in order), through the ``Evaluator``."""
+def evaluator_aucs(cfg, device):
+    """Zero-shot AUC per prompt of ``cfg``'s checkpoint over its feature
+    store (the whole dataset, in order), through the ``Evaluator``."""
     from mmgclip_tpu_torch.data.datasets import get_dataset
     from mmgclip_tpu_torch.data.loader import DataLoaders
     from mmgclip_tpu_torch.evaluation.evaluator import Evaluator
     from mmgclip_tpu_torch.utils.seeding import seeding
 
-    cfg = gate_config(os.path.join(tmp, f"eval_{tag}"), tree, features, checkpoints)
     seeding(int(cfg.base.seed))
     dataset = get_dataset(cfg.dataset.eval.dataset.name)(config=cfg)
     loader = DataLoaders(config=cfg, dataset_split=dataset).get_dataloader(
@@ -1570,7 +1584,13 @@ def gate_aucs(device, tmp, tree, checkpoints, tag, features):
             aucs = {k: v["auc"] for k, v in block.items() if isinstance(v, dict) and "auc" in v}
             if aucs:
                 return aucs
-    raise AssertionError(f"gate {tag}: no AUC block in {results!r}")
+    raise AssertionError(f"no AUC block in {results!r}")
+
+
+def gate_aucs(device, tmp, tree, checkpoints, tag, features):
+    """The shared checkpoint's zero-shot AUC per prompt over one store."""
+    return evaluator_aucs(gate_config(os.path.join(tmp, f"eval_{tag}"), tree, features, checkpoints),
+                          device)
 
 
 def phase_product_gates(device, tmp):
@@ -2526,6 +2546,367 @@ def phase_resnet(device, tmp, smi, tree, micro=False, text=None, shapes=FFDM_SHA
     return times
 
 
+# ----------------------------------------------------------------------
+# phase 20: reproduction from torch artifacts at full width, then the tools
+REPRO_PER_CLASS = 16          # 16 + 16 full-field 16-bit PNGs
+REPRO_EPOCHS = 2
+REPRO_BATCHES = ("dataloader.train.batch_size=8", "dataloader.valid.batch_size=2",
+                 "dataloader.test.batch_size=2")  # the 32-image tree's splits are 22 / 5 / 5
+CONVERT_VERIFY_TOL = 1e-3     # the JAX converter's --verify bound (tools/convert_convnext.py:79)
+PRESETS = ("fused_int8_tanh", "fused_tanh_glue")  # GATE_VARIANTS keys: the store preset's kernels
+TSNE_SIZES = (4096, 16384)
+TSNE_CHECK_N = 300            # card vs CPU: KL within 1% relative, trustworthiness within 0.01
+TSNE_KL_REL = 0.01
+TSNE_TRUST_ABS = 0.01
+
+
+def write_reproduce_tree(root, shapes, n_per_class=REPRO_PER_CLASS):
+    """``write_gate_tree``'s annotations and lists over 16-bit PNGs of the two
+    full-field shapes (alternating), malignant images brighter (the class is
+    in the pixels), written by a thread pool (zlib releases the GIL).
+    -> (base, annotated, lists, [(image_id, label)])."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    base, annotated, lists = write_gate_tree(root, n_per_class, size=8)
+    jobs, labels = [], []
+    for benign in (True, False):
+        for i in range(n_per_class):
+            pid = f"{(2000000 if benign else 2100000) + i:08d}"
+            image_id = f"p{pid}02{VIEWS[i % 4]}"
+            png = os.path.join(base, pid[:2], pid, "st02", f"{image_id}.png")
+            jobs.append((png, shapes[i % len(shapes)], 200 + i + (0 if benign else 100), benign))
+            labels.append((image_id, 0 if benign else 1))
+
+    def write(job):
+        png, shape, seed, benign = job
+        pixels = synthetic_mammogram(*shape, seed=seed).astype(np.float32)
+        write_png16(png, (pixels * (0.5 if benign else 1.5)).clip(0, 65535).astype(np.uint16))
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, jobs))
+    return base, annotated, lists, labels
+
+
+def write_artifacts(root, text_vocab):
+    """The reference's artifact files, seeded: a ConvNeXt-Tiny classifier
+    (1-channel stem, 2 classes, torchvision's names and ``[C, 1, 1]`` layer
+    scales) traced from plain ``nn`` layers to TorchScript, and an HF
+    BERT-base snapshot (the offline tokenizer's vocabulary) as
+    ``pytorch_model.bin`` and as a hand-written ``model.safetensors``.
+    -> (TorchScript path, .bin dir, .safetensors dir)."""
+    from mmgclip_tpu_torch.tools.fixtures import (
+        TorchvisionConvNeXt,
+        bert_state_dict,
+        write_hf_snapshot,
+        write_torchscript,
+    )
+
+    scripted = os.path.join(root, "classifier_convnext_tiny_16bits_images.pt")
+    write_torchscript(TorchvisionConvNeXt(in_channels=1, num_classes=2, seed=0), scripted,
+                      torch.zeros(1, 1, 64, 64))
+    hf_config = {"vocab_size": text_vocab, "hidden_size": 768, "num_hidden_layers": 12,
+                 "num_attention_heads": 12, "intermediate_size": 3072,
+                 "max_position_embeddings": 512, "type_vocab_size": 2}
+    state = bert_state_dict(hf_config, seed=0)
+    bin_dir = write_hf_snapshot(os.path.join(root, "bert_bin"), hf_config, state, "bin")
+    st_dir = write_hf_snapshot(os.path.join(root, "bert_safetensors"), hf_config, state, "safetensors")
+    return scripted, bin_dir, st_dir
+
+
+def trustworthiness(x, embedding, k=5):
+    """scikit-learn's ``trustworthiness`` (Euclidean), in numpy."""
+    n = len(x)
+    x = np.asarray(x, np.float64)
+    e = np.asarray(embedding, np.float64)
+    dist_x = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(dist_x, np.inf)
+    dist_e = ((e[:, None, :] - e[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(dist_e, np.inf)
+    rank = np.empty((n, n), np.int64)
+    rank[np.arange(n)[:, None], np.argsort(dist_x, axis=1, kind="stable")] = np.arange(1, n + 1)
+    near_e = np.argsort(dist_e, axis=1, kind="stable")[:, :k]
+    ranks = rank[np.arange(n)[:, None], near_e] - k
+    return 1.0 - ranks[ranks > 0].sum() * (2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)))
+
+
+def tsne_clusters(n, seed, dim=512, k=10):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k, dim)) * 4
+    return (centers[rng.integers(0, k, n)] + rng.normal(size=(n, dim))).astype(np.float32)
+
+
+def store_aucs(run, features, device):
+    """The trained run's zero-shot AUC per prompt over one store."""
+    from mmgclip_tpu_torch.config import recompose
+
+    cfg = recompose(run)
+    cfg.base.features_export_dir = features
+    return evaluator_aucs(cfg, device)
+
+
+def phase_reproduce(device, tmp, smi, shapes=FFDM_SHAPES, tsne_sizes=TSNE_SIZES,
+                    tsne_check_n=TSNE_CHECK_N):
+    """Phase 20: the port started from the reference's torch artifacts.
+
+    Synthesizes the artifacts (``write_artifacts``), converts them on the
+    card (``convert_convnext --verify`` at 64 x 64, then the converted tower
+    against the TorchScript module on one full-field bucket; ``convert_bert``
+    from ``.bin`` and from ``.safetensors``, byte-equal), runs ``reproduce``
+    over 16 + 16 full-field PNGs (convert, encode, train 2 epochs, ``test()``,
+    report), encodes the store preset's two variants over the converted
+    weights (launches of the int8 block, the block, the stem and the
+    downsample; zero-shot AUC of the trained run within phase 15's 0.005 of
+    the plain store's), ``generate_report`` through the int8 preset (the
+    plain tower's decisions), ``tsne_eval`` over the run, the t-SNE timed
+    alone at ``tsne_sizes`` and held card vs CPU at ``tsne_check_n``, then
+    ``data_efficiency`` (0.5, 1.0; 1 epoch), ``eda``, ``parity_harness`` and
+    ``demo_run``.  -> {"seconds": {...}, "launches": {kernel: n}} (every
+    launch of the phase, step by step: the counts set to 0 before each step
+    and read after it)."""
+    from mmgclip_tpu_torch.config import Config, recompose, save_snapshot
+    from mmgclip_tpu_torch.data.ingest import create_dataset_df
+    from mmgclip_tpu_torch.data.tokenizer import Tokenizer
+    from mmgclip_tpu_torch.ingest.encode import ImageFeatureExtractor
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.tools import (
+        convert_bert,
+        convert_convnext,
+        data_efficiency,
+        demo_run,
+        eda,
+        parity_harness,
+        reproduce,
+        tsne_eval,
+    )
+    from mmgclip_tpu_torch.utils.tsne import tsne
+
+    on_card = device.type == "cuda"
+    root = os.path.join(tmp, "phase20")
+    os.makedirs(root)
+    seconds, launches = {}, {}
+
+    def tally():
+        """The launches since the last reset, added to the phase's; reset."""
+        counts = launch_counts()
+        for kernel, count in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+        reset_launch_counts()
+        return {k: v for k, v in counts.items() if v}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    vocab = Tokenizer.from_pretrained("emilyalsentzer/Bio_ClinicalBERT", sequence_length=256).vocab_size
+    scripted_path, bin_dir, st_dir = write_artifacts(root, vocab)
+    tree = write_reproduce_tree(os.path.join(root, "tree"), shapes)
+    seconds["artifacts_and_tree"] = time.perf_counter() - t0
+    log(f"    artifacts (TorchScript ConvNeXt-Tiny, BERT-base 768 x 12 vocab {vocab} as .bin and "
+        f".safetensors) and {2 * REPRO_PER_CLASS} PNGs of {shapes} in "
+        f"{seconds['artifacts_and_tree']:.2f} s (host)")
+
+    # (2) convert on the card
+    device_arg = [] if on_card else ["--device", str(device)]
+    npz = os.path.join(root, "converted", "convnext_tiny_clf.npz")
+    t0 = time.perf_counter()
+    result = convert_convnext.main(["--input", scripted_path, "--output", npz, "--verify", *device_arg])
+    seconds["convert_convnext"] = time.perf_counter() - t0
+    err64 = result["max_abs_err"]
+    scripted = torch.jit.load(scripted_path, map_location=device)
+    tower = convert_convnext.load_tower(scripted.state_dict(), device)
+    # the full-field bucket at a multiple of 32 (2304 x 1920, the bucket-rounding
+    # canvas): there the JAX tower's bottom/right zero padding and torchvision's
+    # flooring strided convs see the same pixels; at 2294 x 1914 they do not
+    errors = {}
+    for shape in (tuple(-(-s // 32) * 32 for s in shapes[0]), shapes[0]):
+        image = synthetic_mammogram(*shape, seed=7).astype(np.float32)[None, :, :, None] / 65535.0
+        with torch.no_grad():
+            x = torch.from_numpy(image).to(device)
+            ours = tower(x)
+            theirs = scripted.avgpool(scripted.features(x.permute(0, 3, 1, 2).contiguous())).flatten(1)
+        errors[shape] = ((ours - theirs).abs().max().item(), theirs.abs().max().item())
+    del tower
+    (bucket, (err_ff, scale)), (raw, (err_raw, _)) = errors.items()
+    log(f"    convert_convnext --verify (64 x 64, the TorchScript module on the CPU): max_abs "
+        f"{err64:.3e}; the converted tower vs the TorchScript module on one {bucket} bucket "
+        f"(both on {device}, fp32, TF32 off): max_abs {err_ff:.3e} of |features| <= {scale:.3f} "
+        f"(tol {CONVERT_VERIFY_TOL:.0e}); {seconds['convert_convnext']:.2f} s.  At {raw} (not a "
+        f"multiple of 32; not held): max_abs {err_raw:.3e}, the JAX tower's bottom/right padding "
+        f"against torchvision's flooring convs")
+    if not (err64 <= CONVERT_VERIFY_TOL and err_ff <= CONVERT_VERIFY_TOL):
+        raise AssertionError(f"converted ConvNeXt: 64x64 err {err64}, {bucket} err {err_ff}")
+    bert_files = []
+    for kind, snapshot in (("bin", bin_dir), ("safetensors", st_dir)):
+        out = os.path.join(root, "converted", f"bert_{kind}.msgpack")
+        t0 = time.perf_counter()
+        convert_bert.main(["--input", snapshot, "--output", out, *device_arg])
+        seconds[f"convert_bert_{kind}"] = time.perf_counter() - t0
+        with open(out, "rb") as fh:
+            bert_files.append(fh.read())
+    log(f"    convert_bert from pytorch_model.bin {seconds['convert_bert_bin']:.2f} s, from "
+        f"model.safetensors {seconds['convert_bert_safetensors']:.2f} s: "
+        f"{len(bert_files[0])} bytes, {'byte-equal' if bert_files[0] == bert_files[1] else 'DIFFER'}")
+    if bert_files[0] != bert_files[1]:
+        raise AssertionError("convert_bert wrote different bytes from .bin and .safetensors")
+
+    # (3) reproduce
+    base, annotated, lists, labels = tree
+    run = os.path.join(root, "reproduce")
+    args = reproduce.parse_args([
+        "--convnext", scripted_path, "--bert", bin_dir, "--base-data", base,
+        "--annotated-data", annotated, "--lists-data", lists, "--out", run,
+        "--epochs", str(REPRO_EPOCHS), "--device", str(device)])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run, steps = reproduce.reproduce(args, device, REPRO_BATCHES)
+    sync()
+    seconds["reproduce"] = time.perf_counter() - t0
+    log(f"    reproduce: {json.dumps({k: round(v, 3) for k, v in steps.items()})} s per step, "
+        f"{seconds['reproduce']:.2f} s in all (host clock, synchronized; {smi}); launches {tally()}")
+    with open(os.path.join(run, "results", "results.json")) as fh:
+        results = json.load(fh)
+    with open(os.path.join(run, "generated_report.txt")) as fh:
+        report_text = fh.read()
+    stored = sorted(os.path.join(dp, f) for dp, _dn, fn in os.walk(os.path.join(run, "encoded"))
+                    for f in fn if f.endswith(".npy"))
+    if len(stored) != 2 * REPRO_PER_CLASS or "decisions:" not in report_text \
+            or "BenignMalignantDatasetLabels" not in results:
+        raise AssertionError(f"reproduce: {len(stored)} features, results {sorted(results)}, "
+                             f"report {report_text[:200]!r}")
+    log(f"    reproduce report: {report_text.splitlines()[1][:150]}")
+
+    # (4) the store preset's kernels over the converted weights
+    cfg = recompose(run)
+    plain_aucs = store_aucs(run, os.path.join(run, "encoded"), device)
+    plain = {os.path.relpath(p, os.path.join(run, "encoded")): np.load(p).reshape(-1) for p in stored}
+    for tag in PRESETS:
+        knobs, kernels = GATE_VARIANTS[tag]
+        pcfg = recompose(run)
+        pcfg.networks.image_encoder.config = Config(dict(knobs))
+        pcfg.base.features_export_dir = os.path.join(root, f"store_{tag}")
+        rows = create_dataset_df(pcfg)
+        ex = ImageFeatureExtractor(config=pcfg, dataset=rows, device=device)
+        tally()
+        t0 = time.perf_counter()
+        n = ex.extract()
+        sync()
+        seconds[f"encode_{tag}"] = time.perf_counter() - t0
+        counts = tally()
+        feats = {rel: np.load(os.path.join(pcfg.base.features_export_dir, rel)).reshape(-1)
+                 for rel in plain}
+        cos = cosine([feats[r] for r in plain], [plain[r] for r in plain])
+        aucs = store_aucs(run, pcfg.base.features_export_dir, device)
+        delta = max(abs(aucs[k] - v) for k, v in plain_aucs.items())
+        log(f"    encode_images {tag} ({knobs}) over the converted weights: {n} images in "
+            f"{seconds[f'encode_{tag}']:.2f} s, launches {counts}; "
+            f"cosine vs the plain store min {cos.min():.6f}; zero-shot AUC {aucs} vs plain "
+            f"{plain_aucs}: max |delta| {delta:.6f} (tol {GATE_AUC_DELTA})")
+        if n != 2 * REPRO_PER_CLASS or set(aucs) != set(plain_aucs) or not delta <= GATE_AUC_DELTA:
+            raise AssertionError(f"preset {tag}: {n} stored, AUC delta {delta}")
+        if on_card and not all(counts.get(k, 0) > 0 for k in kernels):
+            raise AssertionError(f"preset {tag} launched {counts}, expected {kernels}")
+    report_dir = os.path.join(root, "report_int8")
+    rcfg = recompose(run)
+    rcfg.networks.image_encoder.config = Config(dict(GATE_VARIANTS["fused_int8_tanh"][0]))
+    rcfg.checkpoints.checkpoints_export_dir = os.path.join(report_dir, "checkpoints")
+    save_snapshot(rcfg, report_dir)
+    shutil.copytree(os.path.join(run, "checkpoints"), rcfg.checkpoints.checkpoints_export_dir)
+    image_id = labels[0][0]
+    want, _text, _s = run_generate_report(device, run, "--image_id", image_id)
+    tally()
+    got, text, seconds["generate_report_int8"] = run_generate_report(device, report_dir, "--image_id",
+                                                                     image_id)
+    log(f"    generate_report {image_id} through the int8 preset: {seconds['generate_report_int8']:.2f} s "
+        f"(model load included), launches {tally()}; decisions "
+        f"{'equal to' if got == want else 'DIFFER from'} the plain tower's {want}")
+    if got != want:
+        raise AssertionError(f"preset report decisions {got} != plain {want}")
+    if on_card:
+        for kernel in ("fused_convnext_block_int8", "fused_convnext_block", "fused_stem",
+                       "fused_ln_downsample"):
+            if not launches.get(kernel, 0) > 0:
+                raise AssertionError(f"phase 20 never launched {kernel}: {launches}")
+
+    # (5) t-SNE
+    t0 = time.perf_counter()
+    out = tsne_eval.main(["--experiment_path", run, *device_arg])
+    seconds["tsne_eval"] = time.perf_counter() - t0
+    if out["coords"].shape != (2 * REPRO_PER_CLASS, 2) or not np.isfinite(out["coords"]).all():
+        raise AssertionError(f"tsne_eval coords {out['coords'].shape}")
+    log(f"    tsne_eval over the run ({len(out['coords'])} points): {seconds['tsne_eval']:.2f} s, "
+        f"KL {out['kl_divergence']:.4f}")
+    for n in tsne_sizes:
+        x = tsne_clusters(n, seed=n)
+        sync()
+        t0 = time.perf_counter()
+        res = tsne(x, perplexity=30.0, device=device)
+        sync()
+        seconds[f"tsne_{n}"] = time.perf_counter() - t0
+        if not np.isfinite(res.embedding).all():
+            raise AssertionError(f"t-SNE at N = {n} is not finite")
+        log(f"    t-SNE alone, N = {n} x 512 (10 clusters): {seconds[f'tsne_{n}']:.2f} s on {device} "
+            f"(host clock, synchronized; {smi}), {res.n_iter + 1} iterations, KL {res.kl_divergence:.4f}")
+    x = tsne_clusters(tsne_check_n, seed=3)
+    card = tsne(x, perplexity=30.0, device=device)
+    cpu = tsne(x, perplexity=30.0, device="cpu")
+    kl_rel = abs(card.kl_divergence - cpu.kl_divergence) / cpu.kl_divergence
+    trust = (trustworthiness(x, card.embedding), trustworthiness(x, cpu.embedding))
+    log(f"    t-SNE N = {tsne_check_n}, {device} vs CPU: KL {card.kl_divergence:.6f} / "
+        f"{cpu.kl_divergence:.6f} (rel {kl_rel:.2e}, tol {TSNE_KL_REL}); trustworthiness(5) "
+        f"{trust[0]:.4f} / {trust[1]:.4f} (tol {TSNE_TRUST_ABS})")
+    if not (kl_rel <= TSNE_KL_REL and abs(trust[0] - trust[1]) <= TSNE_TRUST_ABS):
+        raise AssertionError(f"t-SNE card vs CPU: KL rel {kl_rel}, trust {trust}")
+
+    # (6) the other tools
+    data = [f"dataset.config.base_dataset_path={base}",
+            f"dataset.config.annotated_dataset_path={annotated}",
+            f"dataset.config.lists_dataset_path={lists}"]
+    t0 = time.perf_counter()
+    rows = data_efficiency.main([
+        "--fractions", "0.5", "1.0", "--out", os.path.join(root, "sweep"), *device_arg, *data,
+        f"base.features_export_dir={cfg.base.features_export_dir}",
+        f"networks.image_encoder.convnext_tiny_clf_path={npz}",
+        f"networks.text_encoder.weights_path={cfg.networks.text_encoder.weights_path}",
+        "scheduler.config.epochs=1", *REPRO_BATCHES])
+    seconds["data_efficiency"] = time.perf_counter() - t0
+    # a row per fraction with an AUC; this tree's 5-image test split may hold
+    # one class only, and then test() has no AUC to report (as in JAX)
+    for tag in ("p50", "p100"):
+        if not os.path.isfile(os.path.join(root, "sweep", tag, "results", "results.json")):
+            raise AssertionError(f"data_efficiency wrote no results for {tag}")
+    if {r["fraction"] for r in rows} - {0.5, 1.0}:
+        raise AssertionError(f"data_efficiency rows {rows}")
+    report = eda.main(["--out", os.path.join(root, "eda"), *data])
+    want_lines = [f"images: {2 * REPRO_PER_CLASS}", "image_label counts (0=benign, 1=malignant, 2=uncertain):",
+                  f"  0: {REPRO_PER_CLASS}"]
+    if not all(line in report.splitlines() for line in want_lines):
+        raise AssertionError(f"eda report: {report}")
+    sweep_launches = tally()
+    parity_harness.main(["--results", os.path.join(run, "results", "results.json")])
+    t0 = time.perf_counter()
+    demo = demo_run.main(["--out", os.path.join(root, "demo"), *device_arg])
+    sync()
+    seconds["demo_run"] = time.perf_counter() - t0
+    demo_launches = tally()
+    manifests = []
+    for path in (os.path.join(demo, "MANIFEST.txt"),
+                 os.path.join(REPO, "outputs", "demo", "run", "MANIFEST.txt")):
+        with open(path) as fh:
+            manifests.append(fh.read().split())
+    # the PNGs only where matplotlib imports (not on every card's machine)
+    if [f for f in manifests[0] if not f.endswith(".png")] != \
+            [f for f in manifests[1] if not f.endswith(".png")]:
+        raise AssertionError(f"demo_run wrote {manifests[0]}, the committed demo {manifests[1]}")
+    log(f"    data_efficiency (0.5, 1.0; 1 epoch, BERT-base) {seconds['data_efficiency']:.2f} s: "
+        f"{[(r['fraction'], round(r['mean_auc'], 4)) for r in rows]}, launches {sweep_launches}; "
+        f"eda, parity_harness (exit 0); demo_run {seconds['demo_run']:.2f} s, launches "
+        f"{demo_launches}: the committed artifact set ({sum(f.endswith('.png') for f in manifests[0])} "
+        f"of {sum(f.endswith('.png') for f in manifests[1])} PNGs)")
+    log(f"    phase 20 launches, every step: { {k: v for k, v in launches.items() if v} }")
+    return {"seconds": seconds, "launches": launches}
+
+
 def timing_ring(device, peaks, smi, launches, max_err):
     """The ring per (P, shape, dtype) beside its bound, its plain version and
     the library pair (torch.cat, then a copy into each output), all as device
@@ -2817,6 +3198,14 @@ def main() -> int:
             "the graphed step), test(), evaluate_clip, generate_report and serve --once over the run")
         resnet_times = phase_resnet(device, tmp.name, smi, train_tree)
 
+        # 20. the port from the reference's torch artifacts, then the tools -------------
+        log("[20] reproduce from torch artifacts at full width (TorchScript ConvNeXt-Tiny, HF "
+            "BERT-base): convert, encode, train, test(), report; the store preset over the "
+            "converted weights; tsne_eval, data_efficiency, eda, parity_harness, demo_run")
+        t0 = time.perf_counter()
+        phase20 = phase_reproduce(device, tmp.name, smi)
+        log(f"    phase 20 in {time.perf_counter() - t0:.1f}s")
+
         # 11. times (after 12-19) --------------------------------------------------------
         log("[11] times (CUDA events, median of 10 after 3 warmup unless stated)")
         kernels = timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts,
@@ -2827,6 +3216,8 @@ def main() -> int:
                           + resnet_times["train_launches"].get(name, 0)
                           for name in ("threefry2x32", "dropout")}
         kernels += timing_dropout(device, peaks, split_launches, dropout_err)
+        for entry in kernels:
+            entry["phase20_launches"] = phase20["launches"].get(entry["name"], 0)
         timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_towers,
                         dw_pixels, tree, smi)
         timing_reports(device, report, smi)

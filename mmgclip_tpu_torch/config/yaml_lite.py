@@ -9,12 +9,12 @@ keys, comments, plain scalars folded over several lines, and PyYAML's
 implicit types: null, YAML 1.1 booleans, ints, and floats under the YAML 1.2
 rule of ``mmgclip_tpu/config/compose.py`` (``5e-5`` is a float).  Anchors,
 tags, block scalars (``|``, ``>``) and multi-document streams raise.
-``dump`` writes a config back (the run snapshot) in that dialect.
+``dump`` writes a config back (the run snapshot) as PyYAML's ``safe_dump``
+writes it (two deviations, listed at the writer).
 """
 
 from __future__ import annotations
 
-import json
 import re
 from typing import Any, List, Tuple
 
@@ -316,73 +316,237 @@ def load_file(path: str) -> Any:
 
 
 # ----------------------------------------------------------------------
-# writer: block mappings, flow lists of scalars, strings double-quoted, in
-# a form both this reader and PyYAML's safe loader read back to equal data
+# writer: the text PyYAML's ``safe_dump(data, sort_keys=False)`` writes
+# (the JAX package's run snapshot), for mappings, lists and scalars: block
+# mappings and sequences (indentless under a key), ``{}`` / ``[]`` when
+# empty, PyYAML's choice among plain, single- and double-quoted scalars, and
+# plain scalars folded at column 80.  Two deviations keep every string
+# reading back as written under this reader and the JAX loader: a string
+# whose plain form they resolve to another type (``5e-5``, a YAML 1.2
+# float) is single-quoted, and a quoted string is never folded (a string
+# with a line break is double-quoted on one line).
 
-_PLAIN_KEY = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-/]*$")
+_PYYAML_IMPLICIT = re.compile(r"""^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE
+    |on|On|ON|off|Off|OFF
+    |[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+    |[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)
+    |[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)|[-+]?0x[0-9a-fA-F_]+
+    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+
+    |<<|~|null|Null|NULL|=
+    |[0-9][0-9][0-9][0-9]-[0-9][0-9]-[0-9][0-9]
+    |[0-9][0-9][0-9][0-9]\ -[0-9][0-9]?\ -[0-9][0-9]?(?:[Tt]|[\ \t]+)[0-9][0-9]?
+     :[0-9][0-9]\ :[0-9][0-9]\ (?:\.[0-9]*)?(?:[\ \t]*(?:Z|[-+][0-9][0-9]?(?::[0-9][0-9])?))?)$""",
+                              re.X)
+_BREAKS = "\n\x85\u2028\u2029"
+_WHITESPACE = "\0 \t\r" + _BREAKS
+_ESCAPED = {"\0": "0", "\x07": "a", "\x08": "b", "\x09": "t", "\x0A": "n", "\x0B": "v",
+            "\x0C": "f", "\x0D": "r", "\x1B": "e", '"': '"', "\\": "\\", "\x85": "N",
+            "\xA0": "_", "\u2028": "L", "\u2029": "P"}
 
 
-def _dump_scalar(value: Any) -> str:
+def _scalar_text(value: Any) -> Tuple[str, bool]:
+    """PyYAML's representation of a scalar -> (text, plain form allowed)."""
     if value is None:
-        return "null"
+        return "null", True
     if value is True or value is False:
-        return "true" if value else "false"
+        return ("true" if value else "false"), True
     if isinstance(value, int):
-        return str(value)
+        return str(value), True
     if isinstance(value, float):
         if value != value:
-            return ".nan"
+            return ".nan", True
         if value in (float("inf"), float("-inf")):
-            return ".inf" if value > 0 else "-.inf"
-        text = repr(value)
-        if "e" in text and "." not in text:  # YAML 1.1 floats need the dot: 1.0e-20
+            return (".inf" if value > 0 else "-.inf"), True
+        text = repr(value).lower()
+        if "." not in text and "e" in text:
             text = text.replace("e", ".0e", 1)
-        return text if "." in text else text + ".0"
+        return text, True
     if isinstance(value, str):
-        return json.dumps(value)  # JSON escapes are YAML double-quoted escapes
+        return value, (value != "" and not _PYYAML_IMPLICIT.match(value)
+                       and plain_scalar(value) == value)
     raise YamlError(f"cannot dump {type(value).__name__}")
 
 
-def _dump_key(key: Any) -> str:
-    text = str(key)
-    return text if _PLAIN_KEY.match(text) and plain_scalar(text) == text else json.dumps(text)
+def _analyse(text: str) -> dict:
+    """PyYAML's ``Emitter.analyze_scalar`` (``allow_unicode`` off)."""
+    if not text:
+        return {"empty": True, "multiline": False, "block_plain": True, "single": True}
+    block_ind = flow_ind = text.startswith("---") or text.startswith("...")
+    line_breaks = special = False
+    leading = trailing = break_space = space_break = False
+    prev_space = prev_break = False
+    preceded = True
+    followed = len(text) == 1 or text[1] in _WHITESPACE
+    for index, ch in enumerate(text):
+        if index == 0:
+            if ch in "#,[]{}&*!|>'\"%@`":
+                flow_ind = block_ind = True
+            if ch in "?:":
+                flow_ind = True
+                block_ind = block_ind or followed
+            if ch == "-" and followed:
+                flow_ind = block_ind = True
+        else:
+            if ch in ",?[]{}":
+                flow_ind = True
+            if ch == ":":
+                flow_ind = True
+                block_ind = block_ind or followed
+            if ch == "#" and preceded:
+                flow_ind = block_ind = True
+        if ch in _BREAKS:
+            line_breaks = True
+        if not (ch == "\n" or "\x20" <= ch <= "\x7E"):
+            special = True
+        if ch == " ":
+            leading = leading or index == 0
+            trailing = trailing or index == len(text) - 1
+            break_space = break_space or prev_break
+            prev_space, prev_break = True, False
+        elif ch in _BREAKS:
+            leading = leading or index == 0
+            trailing = trailing or index == len(text) - 1
+            space_break = space_break or prev_space
+            prev_space, prev_break = False, True
+        else:
+            prev_space = prev_break = False
+        preceded = ch in _WHITESPACE
+        followed = index + 2 >= len(text) or text[index + 2] in _WHITESPACE
+    block_plain = not (leading or trailing or break_space or space_break or special
+                       or line_breaks or block_ind)
+    single = not (break_space or space_break or special)
+    return {"empty": False, "multiline": line_breaks, "block_plain": block_plain,
+            "single": single}
 
 
-def _dump_block(node: Any, indent: int, lines: List[str]) -> None:
-    pad = " " * indent
-    if isinstance(node, dict):
-        for key, value in node.items():
-            head = f"{pad}{_dump_key(key)}:"
-            if isinstance(value, (dict, list)) and value and not _flat_list(value):
-                lines.append(head)
-                _dump_block(value, indent + 2, lines)
-            else:
-                lines.append(f"{head} {_dump_inline(value)}")
-    else:
-        for item in node:
-            if isinstance(item, (dict, list)) and item and not _flat_list(item):
-                lines.append(f"{pad}-")
-                _dump_block(item, indent + 2, lines)
-            else:
-                lines.append(f"{pad}- {_dump_inline(item)}")
+class _Emitter:
+    """PyYAML's block emitter over Python data (no anchors, tags or flow
+    collections with items)."""
 
+    WIDTH = 80
 
-def _flat_list(value: Any) -> bool:
-    return isinstance(value, list) and not any(isinstance(v, (dict, list)) for v in value)
+    def __init__(self):
+        self.out: List[str] = []
+        self.column = 0
+        self.whitespace = self.indention = True
+        self.indent = None
+        self.indents: List[Any] = []
 
+    def write(self, data: str) -> None:
+        self.column += len(data)
+        self.out.append(data)
 
-def _dump_inline(value: Any) -> str:
-    if isinstance(value, dict):
-        return "{}"
-    if isinstance(value, list):
-        return "[" + ", ".join(_dump_scalar(v) for v in value) + "]"
-    return _dump_scalar(value)
+    def indicator(self, text: str, need_whitespace: bool, whitespace: bool = False,
+                  indention: bool = False) -> None:
+        self.write(text if self.whitespace or not need_whitespace else " " + text)
+        self.whitespace = whitespace
+        self.indention = self.indention and indention
+
+    def line_break(self) -> None:
+        self.out.append("\n")
+        self.whitespace = self.indention = True
+        self.column = 0
+
+    def write_indent(self) -> None:
+        indent = self.indent or 0
+        if (not self.indention or self.column > indent
+                or (self.column == indent and not self.whitespace)):
+            self.line_break()
+        if self.column < indent:
+            self.whitespace = True
+            self.write(" " * (indent - self.column))
+
+    def increase_indent(self, flow: bool = False, indentless: bool = False) -> None:
+        self.indents.append(self.indent)
+        if self.indent is None:
+            self.indent = 2 if flow else 0
+        elif not indentless:
+            self.indent += 2
+
+    def node(self, value: Any, mapping: bool = False, simple_key: bool = False) -> None:
+        if isinstance(value, (dict, list)) and not value:
+            opening, closing = ("{", "}") if isinstance(value, dict) else ("[", "]")
+            self.indicator(opening, True, whitespace=True)
+            self.indicator(closing, False)
+        elif isinstance(value, dict):
+            self.increase_indent()
+            for key, item in value.items():
+                self.write_indent()
+                text, plain = _scalar_text(key)
+                analysis = _analyse(text)
+                if len(text) >= 128 or analysis["empty"] or analysis["multiline"]:
+                    raise YamlError(f"cannot dump the complex key {key!r}")
+                self.scalar(text, plain, analysis, simple_key=True)
+                self.indicator(":", False)
+                self.node(item, mapping=True)
+            self.indent = self.indents.pop()
+        elif isinstance(value, list):
+            self.increase_indent(indentless=mapping and not self.indention)
+            for item in value:
+                self.write_indent()
+                self.indicator("-", True, indention=True)
+                self.node(item)
+            self.indent = self.indents.pop()
+        else:
+            text, plain = _scalar_text(value)
+            self.scalar(text, plain, _analyse(text), simple_key)
+
+    def scalar(self, text: str, plain: bool, analysis: dict, simple_key: bool) -> None:
+        self.increase_indent(flow=True)
+        if plain and analysis["block_plain"] and not (simple_key and analysis["empty"]):
+            self.plain(text, split=not simple_key)
+        elif analysis["single"] and not analysis["multiline"]:
+            self.indicator("'", True)
+            self.write(text.replace("'", "''"))
+            self.indicator("'", False)
+        else:
+            self.indicator('"', True)
+            for ch in text:
+                if ch in _ESCAPED:
+                    self.write("\\" + _ESCAPED[ch])
+                elif "\x20" <= ch <= "\x7E":
+                    self.write(ch)
+                elif ch <= "\xFF":
+                    self.write("\\x%02X" % ord(ch))
+                elif ch <= "\uFFFF":
+                    self.write("\\u%04X" % ord(ch))
+                else:
+                    self.write("\\U%08X" % ord(ch))
+            self.indicator('"', False)
+        self.indent = self.indents.pop()
+
+    def plain(self, text: str, split: bool) -> None:
+        """PyYAML's ``write_plain`` for a scalar without line breaks: a
+        single space past column 80 becomes a line break and the indent."""
+        if not self.whitespace:
+            self.write(" ")
+        self.whitespace = self.indention = False
+        start = 0
+        spaces = False
+        for end in range(len(text) + 1):
+            ch = text[end] if end < len(text) else None
+            if spaces:
+                if ch != " ":
+                    if start + 1 == end and self.column > self.WIDTH and split:
+                        self.write_indent()
+                        self.whitespace = self.indention = False
+                    else:
+                        self.write(text[start:end])
+                    start = end
+            elif ch is None or ch == " ":
+                self.write(text[start:end])
+                start = end
+            spaces = ch == " "
 
 
 def dump(data: Any) -> str:
-    """A mapping of mappings, lists and scalars -> YAML text."""
+    """A mapping of mappings, lists and scalars -> the YAML text PyYAML's
+    ``safe_dump(data, sort_keys=False)`` writes (see the deviations above)."""
     if not isinstance(data, dict):
         raise YamlError("dump takes a mapping")
-    lines: List[str] = []
-    _dump_block(data, 0, lines)
-    return "\n".join(lines) + "\n"
+    emitter = _Emitter()
+    emitter.node(data)
+    emitter.write_indent()
+    return "".join(emitter.out)

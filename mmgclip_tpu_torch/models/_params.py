@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,6 +24,13 @@ class ParamGroup(nn.Module):
         super().__init__()
         for name, value in tensors.items():
             self.register_parameter(name, nn.Parameter(value))
+
+
+def host_array(value) -> np.ndarray:
+    """A tensor on any device (or an array) -> numpy, for weight importers."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 def lecun_normal(shape: Sequence[int], fan_in: int, generator: torch.Generator) -> torch.Tensor:

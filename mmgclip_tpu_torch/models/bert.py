@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import attention_reference, flash_attention, prefix_lengths
-from ._params import ParamGroup, flax_layer_norm, layer_norm, lecun_normal, norm, weight
+from ._params import ParamGroup, flax_layer_norm, host_array, layer_norm, lecun_normal, norm, weight
 
 
 @dataclass(frozen=True)
@@ -159,3 +159,48 @@ def eos_pool(last_hidden_state: torch.Tensor, attention_mask: torch.Tensor) -> t
     eos_idx = attention_mask.sum(dim=-1).long() - 1
     eos_idx = eos_idx.clamp(0, last_hidden_state.shape[1] - 1)
     return last_hidden_state[torch.arange(last_hidden_state.shape[0], device=eos_idx.device), eos_idx]
+
+
+def hf_tree(state_dict, config: BertConfig) -> dict:
+    """A HuggingFace ``BertModel`` state dict (without the ``bert.`` prefix)
+    -> the JAX tower's numpy tree ``{"params": {...}}`` (the JAX package's
+    ``load_hf_weights`` without the flax init it overwrites: every leaf of
+    that init comes from the state dict).
+
+    Per-layer tensors stack along a leading ``[layers]`` axis; the query,
+    key and value projections fuse into ``qkv_kernel`` ``[H, 3, heads, dh]``
+    and ``qkv_bias`` ``[3, heads, dh]`` per layer.
+    """
+    sd = {k: host_array(v) for k, v in state_dict.items()}
+    H, heads = config.hidden_size, config.num_attention_heads
+    dh = H // heads
+
+    def per_head(pre, name):  # HF [H_out, H_in] -> [H_in, heads, dh]
+        return sd[f"{pre}.attention.self.{name}.weight"].T.reshape(H, heads, dh)
+
+    leaves = {
+        "qkv_kernel": lambda pre: np.stack([per_head(pre, n) for n in ("query", "key", "value")],
+                                           axis=1),
+        "qkv_bias": lambda pre: np.stack([sd[f"{pre}.attention.self.{n}.bias"].reshape(heads, dh)
+                                          for n in ("query", "key", "value")]),
+        "out_kernel": lambda pre: sd[f"{pre}.attention.output.dense.weight"].T,
+        "out_bias": lambda pre: sd[f"{pre}.attention.output.dense.bias"],
+        "attn_norm_scale": lambda pre: sd[f"{pre}.attention.output.LayerNorm.weight"],
+        "attn_norm_bias": lambda pre: sd[f"{pre}.attention.output.LayerNorm.bias"],
+        "mlp_in_kernel": lambda pre: sd[f"{pre}.intermediate.dense.weight"].T,
+        "mlp_in_bias": lambda pre: sd[f"{pre}.intermediate.dense.bias"],
+        "mlp_out_kernel": lambda pre: sd[f"{pre}.output.dense.weight"].T,
+        "mlp_out_bias": lambda pre: sd[f"{pre}.output.dense.bias"],
+        "out_norm_scale": lambda pre: sd[f"{pre}.output.LayerNorm.weight"],
+        "out_norm_bias": lambda pre: sd[f"{pre}.output.LayerNorm.bias"],
+    }
+    layers = [f"encoder.layer.{i}" for i in range(config.num_hidden_layers)]
+    p = {
+        "word_embeddings": {"embedding": sd["embeddings.word_embeddings.weight"]},
+        "position_embeddings": {"embedding": sd["embeddings.position_embeddings.weight"]},
+        "token_type_embeddings": {"embedding": sd["embeddings.token_type_embeddings.weight"]},
+        "embeddings_norm": {"scale": sd["embeddings.LayerNorm.weight"],
+                            "bias": sd["embeddings.LayerNorm.bias"]},
+    }
+    p.update({key: np.stack([leaf(pre) for pre in layers]) for key, leaf in leaves.items()})
+    return {"params": p}

@@ -27,6 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -36,7 +37,7 @@ from ..ops.fused_block import EPS, fused_convnext_block, fused_convnext_block_in
 from ..ops.fused_downsample import fused_ln_downsample
 from ..ops.fused_stem import fused_stem, patchify
 from ..ops.quant import int8_dot
-from ._params import ParamGroup, dense, flax_layer_norm, lecun_normal, norm
+from ._params import ParamGroup, dense, flax_layer_norm, host_array, lecun_normal, norm
 
 
 @dataclass(frozen=True)
@@ -254,3 +255,59 @@ class ConvNeXt(nn.Module):
             return pooled
         h = flax_layer_norm(pooled, self.head_norm.scale, self.head_norm.bias)
         return h @ self.head_fc.kernel + self.head_fc.bias
+
+
+def torchvision_tree(state_dict, config: ConvNeXtConfig) -> dict:
+    """A torchvision ``convnext_tiny`` state dict -> the JAX tower's numpy
+    tree ``{"params": {...}}`` (the JAX package's ``load_torchvision_weights``
+    without the flax init it overwrites).
+
+    Conv kernels go OIHW -> HWIO, linear kernels are transposed, and each
+    stage's block tensors stack along a leading ``[depth]`` axis.  The head
+    (``head_norm``, ``head_fc``) is in the tree only when the state dict
+    has ``classifier.*`` (the reference's TorchScript classifier does).
+    torchvision keeps ``layer_scale`` as ``[C, 1, 1]``; it becomes the
+    ``[C]`` gamma the block multiplies with (a ``[C]`` layer scale is
+    unchanged).  ``config`` gives the depths; ``in_channels`` is the stem's.
+    """
+    sd = {k: host_array(v) for k, v in state_dict.items()}
+
+    def conv(name):  # OIHW -> HWIO
+        return sd[name].transpose(2, 3, 1, 0)
+
+    def lin(name):
+        return sd[name].T
+
+    def ln(name):
+        return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+    p = {
+        "stem_conv": {"kernel": conv("features.0.0.weight"), "bias": sd["features.0.0.bias"]},
+        "stem_norm": ln("features.0.1"),
+    }
+    # torchvision indexes: stages at features[1, 3, 5, 7], downsamples at [2, 4, 6]
+    for stage, depth in enumerate(config.depths):
+        if stage > 0:
+            di = 2 * stage
+            p[f"downsample_{stage}_norm"] = ln(f"features.{di}.0")
+            p[f"downsample_{stage}_conv"] = {"kernel": conv(f"features.{di}.1.weight"),
+                                             "bias": sd[f"features.{di}.1.bias"]}
+        si = 2 * stage + 1
+        blocks = [f"features.{si}.{b}" for b in range(depth)]
+        leaves = {
+            "dwconv_kernel": lambda pre: conv(f"{pre}.block.0.weight"),  # [7, 7, 1, C]
+            "dwconv_bias": lambda pre: sd[f"{pre}.block.0.bias"],
+            "norm_scale": lambda pre: sd[f"{pre}.block.2.weight"],
+            "norm_bias": lambda pre: sd[f"{pre}.block.2.bias"],
+            "pwconv1_kernel": lambda pre: lin(f"{pre}.block.3.weight"),
+            "pwconv1_bias": lambda pre: sd[f"{pre}.block.3.bias"],
+            "pwconv2_kernel": lambda pre: lin(f"{pre}.block.5.weight"),
+            "pwconv2_bias": lambda pre: sd[f"{pre}.block.5.bias"],
+            "gamma": lambda pre: sd[f"{pre}.layer_scale"].reshape(-1),
+        }
+        p[f"stage_{stage}"] = {key: np.stack([leaf(pre) for pre in blocks])
+                               for key, leaf in leaves.items()}
+    if "classifier.0.weight" in sd:
+        p["head_norm"] = ln("classifier.0")
+        p["head_fc"] = {"kernel": lin("classifier.2.weight"), "bias": sd["classifier.2.bias"]}
+    return {"params": p}

@@ -173,7 +173,7 @@ class InferenceEngine:
         n = feats.shape[0]
         bucket = 1 << max(n - 1, 0).bit_length()
         if bucket > n:
-            feats = torch.cat([feats, feats[-1:].expand(bucket - n, -1)])
+            feats = torch.cat([feats, feats[-1:].expand(bucket - n, *feats.shape[1:])])
         return feats, n
 
     def _features(self, features) -> torch.Tensor:

@@ -24,7 +24,10 @@ program call; the threefry and dropout kernels bit-equal to their plain
 versions (``utils/prng.py``): keys, masks, outputs and gradients, also
 replayed in a CUDA graph; the micro ResNet tower on the card against the
 CPU within 1e-5 relative L2 (features and ``layer4`` gradients), and its
-fused epoch graphed and resumed after the capture as above.
+fused epoch graphed and resumed after the capture as above; the t-SNE on
+the card against the CPU (KL within 1% relative, trustworthiness within
+0.01); ``convert_convnext --verify`` on the card within 1e-4, and the three
+converters writing the same bytes with the card as with ``--device cpu``.
 """
 
 import numpy as np
@@ -820,3 +823,67 @@ def test_dropout_key_advances_inside_a_cuda_graph(cuda_device):
         graph.replay()
         assert torch.equal(out, want)
     assert torch.equal(key, eager_key)
+
+
+def test_tsne_on_the_card_matches_the_cpu(cuda_device):
+    """The t-SNE's sums run in another order on the card, and its
+    iterations amplify that, so the two runs are held by the objective:
+    KL within 1% relative, trustworthiness within 0.01."""
+    from chip_smoke import trustworthiness, tsne_clusters
+    from mmgclip_tpu_torch.utils.tsne import tsne
+
+    x = tsne_clusters(300, seed=3)
+    card, cpu = tsne(x, device=cuda_device), tsne(x, device="cpu")
+    assert abs(card.kl_divergence - cpu.kl_divergence) <= 0.01 * cpu.kl_divergence
+    assert abs(trustworthiness(x, card.embedding) - trustworthiness(x, cpu.embedding)) <= 0.01
+
+
+def test_convert_convnext_verifies_on_the_card(cuda_device, tmp_path):
+    from mmgclip_tpu_torch.tools import convert_convnext
+    from mmgclip_tpu_torch.tools.fixtures import TorchvisionConvNeXt, write_torchscript
+
+    scripted = str(tmp_path / "classifier.pt")
+    write_torchscript(TorchvisionConvNeXt(in_channels=1, seed=0), scripted, torch.zeros(1, 1, 64, 64))
+    card = convert_convnext.main(["--input", scripted, "--output", str(tmp_path / "card.npz"),
+                                  "--verify"])
+    assert card["max_abs_err"] <= 1e-4
+    convert_convnext.main(["--input", scripted, "--output", str(tmp_path / "cpu.npz"),
+                           "--device", "cpu"])
+    assert (tmp_path / "card.npz").read_bytes() == (tmp_path / "cpu.npz").read_bytes()
+
+
+def test_text_converters_write_the_same_bytes_on_the_card(cuda_device, tmp_path):
+    from mmgclip_tpu_torch.tools import convert_bert, convert_biogpt
+    from mmgclip_tpu_torch.tools.fixtures import bert_state_dict, write_hf_snapshot
+
+    bert = {"vocab_size": 120, "hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
+            "intermediate_size": 128, "max_position_embeddings": 64}
+    snapshot = write_hf_snapshot(str(tmp_path / "bert"), bert, bert_state_dict(bert), "safetensors")
+    for device, name in ((None, "card"), ("cpu", "cpu")):
+        convert_bert.main(["--input", snapshot, "--output", str(tmp_path / f"bert_{name}.msgpack")]
+                          + (["--device", device] if device else []))
+    assert (tmp_path / "bert_card.msgpack").read_bytes() == (tmp_path / "bert_cpu.msgpack").read_bytes()
+
+    g = torch.Generator().manual_seed(0)
+    gpt = {"vocab_size": 80, "hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 2,
+           "intermediate_size": 64, "max_position_embeddings": 48}
+    h, i = gpt["hidden_size"], gpt["intermediate_size"]
+    state = {"biogpt.embed_tokens.weight": torch.randn(80, h, generator=g),
+             "biogpt.embed_positions.weight": torch.randn(50, h, generator=g),
+             "biogpt.layer_norm.weight": torch.randn(h, generator=g),
+             "biogpt.layer_norm.bias": torch.randn(h, generator=g)}
+    for layer in range(2):
+        pre = f"biogpt.layers.{layer}."
+        for name, shape in (("self_attn.q_proj", (h, h)), ("self_attn.k_proj", (h, h)),
+                            ("self_attn.v_proj", (h, h)), ("self_attn.out_proj", (h, h)),
+                            ("fc1", (i, h)), ("fc2", (h, i))):
+            state[pre + name + ".weight"] = torch.randn(*shape, generator=g)
+            state[pre + name + ".bias"] = torch.randn(shape[0], generator=g)
+        for name in ("self_attn_layer_norm", "final_layer_norm"):
+            state[pre + name + ".weight"] = torch.randn(h, generator=g)
+            state[pre + name + ".bias"] = torch.randn(h, generator=g)
+    snapshot = write_hf_snapshot(str(tmp_path / "gpt"), gpt, state, "bin")
+    for device, name in ((None, "card"), ("cpu", "cpu")):
+        convert_biogpt.main(["--input", snapshot, "--output", str(tmp_path / f"gpt_{name}.msgpack")]
+                            + (["--device", device] if device else []))
+    assert (tmp_path / "gpt_card.msgpack").read_bytes() == (tmp_path / "gpt_cpu.msgpack").read_bytes()

@@ -37,9 +37,9 @@ import generate_report as jax_generate_report
 from fixtures import make_image_id
 from mmgclip_tpu.config import recompose as jax_recompose
 from mmgclip_tpu_torch import encode_images, evaluate_clip, generate_report, serve
-from mmgclip_tpu_torch.config import Config, recompose, save_snapshot
+from mmgclip_tpu_torch.config import Config, save_snapshot
 from mmgclip_tpu_torch.data.paths import create_path
-from torch_demo import DEMO_RUN, demo_towers
+from torch_demo import DEMO_RUN, encode_overrides, port_demo_run
 
 IMAGE_ID = make_image_id(2000000, 2, "cl")
 TOL = 1e-5
@@ -48,42 +48,7 @@ EXAM_ID = "0200000502"  # a made-up exam (patient 02000005, study 02) of three f
 
 @pytest.fixture(scope="module")
 def demo(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("done_check"))
-    (base, annotated, lists), _jax_engine, text_path, convnext_path = demo_towers(
-        os.path.join(root, "data"))
-    run = os.path.join(root, "run")
-    cfg = recompose(DEMO_RUN)
-    for key, value in (("dataset.config.base_dataset_path", base),
-                       ("dataset.config.annotated_dataset_path", annotated),
-                       ("dataset.config.lists_dataset_path", lists),
-                       ("base.features_export_dir", os.path.join(root, "data", "encoded")),
-                       ("base.export_dir", run),
-                       ("base.results_export_dir", os.path.join(run, "results")),
-                       ("base.tensorboard_export_dir", os.path.join(run, "runs")),
-                       ("checkpoints.checkpoints_export_dir", os.path.join(run, "checkpoints")),
-                       ("hydra.run.dir", run),
-                       ("networks.image_encoder.convnext_tiny_clf_path", convnext_path),
-                       ("networks.text_encoder.weights_path", text_path)):
-        cfg.set_path(key, value)
-    save_snapshot(cfg, run)
-    os.makedirs(os.path.join(run, "checkpoints"))
-    shutil.copy(os.path.join(DEMO_RUN, "checkpoints", "model.msgpack"),
-                os.path.join(run, "checkpoints", "model.msgpack"))
-    return {"root": root, "run": run, "cfg": cfg, "base": base}
-
-
-def _entry_point_overrides(cfg, run_dir):
-    """``key=value`` overrides that make ``train_binary_class_clf`` the demo's
-    encode config (``tools/demo_run.py``'s ``make_cfg``)."""
-    c = cfg.dataset.config
-    return ["--device", "cpu",
-            f"dataset.config.base_dataset_path={c.base_dataset_path}",
-            f"dataset.config.annotated_dataset_path={c.annotated_dataset_path}",
-            f"dataset.config.lists_dataset_path={c.lists_dataset_path}",
-            f"base.features_export_dir={cfg.base.features_export_dir}",
-            f"networks.image_encoder.convnext_tiny_clf_path={cfg.networks.image_encoder.convnext_tiny_clf_path}",
-            "networks.image_encoder.config={micro: true, in_channels: 1}",
-            f"hydra.run.dir={run_dir}"]
+    return port_demo_run(str(tmp_path_factory.mktemp("done_check")))
 
 
 def _close(ours, theirs, path=""):
@@ -104,7 +69,7 @@ def _close(ours, theirs, path=""):
 
 def test_results_json_from_encode_images_and_evaluate_clip(demo):
     cfg = demo["cfg"]
-    assert encode_images.main(_entry_point_overrides(cfg, os.path.join(demo["root"], "encode"))) == 0
+    assert encode_images.main(encode_overrides(cfg, os.path.join(demo["root"], "encode"))) == 0
     evaluate_clip.main(["--experiment_path", demo["run"], "--run_name", "results", "--device", "cpu"])
     with open(os.path.join(demo["run"], "results", "results.json")) as fh:
         ours = json.load(fh)

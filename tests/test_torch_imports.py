@@ -3,9 +3,10 @@ machine lacks.
 
 An AST check over every module of ``mmgclip_tpu_torch``, ``chip_smoke.py``,
 ``kernel_ab.py``, ``block_sweep.py`` and ``stem_sweep.py`` refuses imports of the JAX package and of packages that machine does not
-have, and a subprocess with those packages blocked in ``sys.modules`` (and
+have (scikit-learn and safetensors among them), and a subprocess with those packages blocked in ``sys.modules`` (and
 matplotlib and tensorboard, which the evaluator and the scalar writer only
-try) imports every port module, runs the micro serving path on the CPU,
+try) imports every port module (the tools too), runs the port's t-SNE and
+``tools.convert_bert`` from a ``model.safetensors`` snapshot, runs the micro serving path on the CPU,
 trains, tests and re-evaluates a tiny run through the ``train`` and
 ``evaluate_clip`` entry points, compares the two result sets through
 ``tools.compare_runs`` (its PNGs skipped), runs the micro ResNet-50 model,
@@ -26,7 +27,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "mmgclip_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmgclip_tpu", "yaml", "msgpack", "PIL",
-             "pandas", "nltk", "transformers", "sacremoses", "triton", "ninja")
+             "pandas", "nltk", "transformers", "sacremoses", "triton", "ninja", "sklearn",
+             "safetensors")
 BLOCKED = FORBIDDEN + ("matplotlib", "tensorboard")
 
 
@@ -67,8 +69,26 @@ def test_port_runs_with_the_missing_packages_blocked(tmp_path):
             importlib.import_module(info.name)
             walked.add(info.name)
         new = {{"mmgclip_tpu_torch.models.resnet", "mmgclip_tpu_torch.utils.plot",
-               "mmgclip_tpu_torch.tools.compare_runs"}}
+               "mmgclip_tpu_torch.tools.compare_runs", "mmgclip_tpu_torch.utils.tsne",
+               "mmgclip_tpu_torch.utils.safetensors_lite"}}
+        new |= {{"mmgclip_tpu_torch.tools." + name for name in (
+            "convert_convnext", "convert_bert", "convert_biogpt", "fixtures", "reproduce",
+            "tsne_eval", "data_efficiency", "eda", "parity_harness", "demo_run",
+            "make_vocab_fixture")}}
         assert new <= walked, new - walked
+        import numpy as np
+        from mmgclip_tpu_torch.utils.tsne import tsne
+        points = np.random.default_rng(0).normal(size=(30, 8))
+        embedded = tsne(points, perplexity=5.0).embedding
+        assert embedded.shape == (30, 2) and np.isfinite(embedded).all()
+        from mmgclip_tpu_torch.tools import convert_bert
+        from mmgclip_tpu_torch.tools.fixtures import bert_state_dict, write_hf_snapshot
+        bert = {{"vocab_size": 40, "hidden_size": 16, "num_hidden_layers": 1,
+                "num_attention_heads": 2, "intermediate_size": 32, "max_position_embeddings": 16}}
+        snapshot = write_hf_snapshot(os.path.join({str(tmp_path)!r}, "snap"), bert,
+                                     bert_state_dict(bert), "safetensors")
+        convert_bert.main(["--input", snapshot, "--output",
+                           os.path.join({str(tmp_path)!r}, "bert.msgpack"), "--device", "cpu"])
         import chip_smoke
         import numpy as np
         from mmgclip_tpu_torch.serving import InferenceEngine
