@@ -2962,6 +2962,431 @@ def timing_ring(device, peaks, smi, launches, max_err):
     return entry
 
 
+# ----------------------------------------------------------------------
+# 21. the parallel layer across processes (ranks sharing the card)
+# ----------------------------------------------------------------------
+
+PEER_RANKS = (2, 4)
+PEER_REPEATS = 50             # back-to-back calls, no check between
+PEER_TIMEOUT_TEST_S = 2.0     # the watchdog's deadline in the withheld-signal check
+DP_LOSS_REL_TOL = 1e-5        # 2-process data-parallel epochs vs phase 14's single-process run
+BANK_REL_TOL = 1e-5           # TP 2 / PP 2 banks vs the plain bank: max_abs over max |plain|
+ATTN_ABS_TOL = 1e-5           # ring attention vs attention over the whole sequence, fp32
+MOE_REL_TOL = 1e-5            # the EP head vs the replicated head, outputs and gradients:
+                              # max_abs over max |replicated|; cuBLAS sums each expert block
+                              # in another order than the whole (exact on the CPU)
+PEER_TIMEOUT = 600            # seconds for a group of child processes
+
+
+def _peer_main(what, rank, world, store, out_dir, arg_json):
+    """One child of phase 21 (a rank of a gloo process group; the ranks
+    share the card): ``what`` is "ring" or "train"; writes its results as
+    JSON and prints ``peer_ok=1``."""
+    from mmgclip_tpu_torch.parallel.multihost import initialize_distributed, shutdown
+
+    args = json.loads(arg_json)
+    cpu = args.get("device") == "cpu"  # a CPU rehearsal of the training children
+    initialize_distributed(store, world, rank, backend="gloo", device="cpu" if cpu else None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cpu") if cpu else torch.device("cuda", torch.cuda.current_device())
+    results = (_peer_ring_checks(device, rank, world) if what == "ring"
+               else _peer_train_checks(device, rank, world, args))
+    with open(os.path.join(out_dir, f"{what}_{rank}.json"), "w") as fh:
+        json.dump(results, fh)
+    shutdown()
+    print("peer_ok=1", flush=True)
+
+
+def run_peers(what, world, tmp, args=None):
+    """Phase 21's children: ``world`` processes of ``_peer_main``; a failing
+    or hanging child fails the phase (and kills the rest)."""
+    from mmgclip_tpu_torch.parallel.multihost import file_store, spawn
+
+    out_dir = tempfile.mkdtemp(prefix=f"peers_{what}_", dir=tmp)
+    store = file_store(out_dir)
+    arg_json = json.dumps(args or {})
+
+    def code(rank):
+        return (f"import chip_smoke\nchip_smoke._peer_main({what!r}, {rank}, {world}, {store!r}, "
+                f"{out_dir!r}, {arg_json!r})\n")
+
+    spawn(code, world, PEER_TIMEOUT, "peer_ok=")
+    out = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"{what}_{rank}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def _seeded_shards(ranks, shape, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+            for _ in range(ranks)]
+
+
+def _peer_ring_checks(device, rank, world):
+    """The cross-process ring at P = 2 and 4 (bit-equal to ``torch.cat``, back
+    to back, a withheld signal), its times beside the in-process mode and
+    gloo, the global losses and ring attention."""
+    import torch.distributed as dist
+
+    from mmgclip_tpu_torch.losses import clip_loss, mmgclip_loss
+    from mmgclip_tpu_torch.models.clip import l2_normalize
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.ops.flash_attention import attention_reference
+    from mmgclip_tpu_torch.ops.ring_attention import ring_attention
+    from mmgclip_tpu_torch.parallel import collectives as C
+    from mmgclip_tpu_torch.parallel import global_clip_loss, global_mmgclip_loss
+    from mmgclip_tpu_torch.parallel.mesh import DATA_AXIS, create_mesh
+
+    meshes = {4: create_mesh(data=4), 2: create_mesh(data=2, ranks=[0, 1])}
+    out = {"stream_ops": C.stream_memory_ops(), "checks": [], "times": [], "worst": 0.0}
+    for ranks in PEER_RANKS:
+        mesh = meshes[ranks]
+        dist.barrier()
+        if not mesh.member:
+            continue
+        me, group = mesh.index(DATA_AXIS), mesh.group(DATA_AXIS)
+        for shape in ((32, 512), (32 // ranks, 512)):
+            for dtype in (torch.float32, torch.bfloat16):
+                shards = _seeded_shards(ranks, shape, dtype, device, 21)
+                ref = torch.cat(shards)
+                reset_launch_counts()
+                got = C.ring_all_gather(shards[me], DATA_AXIS, mesh=mesh)
+                launched = launch_counts()["ring_all_gather"]
+                if launched != 1 or not bit_equal([got], [ref]):
+                    raise AssertionError(f"peer ring P={ranks} {shape} {dtype}: "
+                                         f"launches {launched}, bit-equal {bit_equal([got], [ref])}")
+                out["checks"].append(f"P={ranks} {shape} {str(dtype)[6:]}")
+        # back to back, no check between
+        batches = [_seeded_shards(ranks, (32 // ranks, 512), torch.float32, device, 100 + i)
+                   for i in range(PEER_REPEATS)]
+        outs = [C._peer_ring(b[me], mesh, DATA_AXIS) for b in batches]
+        C.check_ring(device)
+        if not all(bit_equal([o], [torch.cat(b)]) for o, b in zip(outs, batches)):
+            raise AssertionError(f"peer ring P={ranks}: a back-to-back call differs from torch.cat")
+        # times: CUDA events around back-to-back calls on every rank at once
+        for shape in ((32, 512), (32 // ranks, 512)):
+            shards = _seeded_shards(ranks, shape, torch.float32, device, 7)
+            x = shards[me]
+            chunk = x.numel() * x.element_size()
+            row = {"P": ranks, "shape": list(shape), "bound_ms": (ranks * ranks + ranks) * chunk / 3.35e12 * 1e3}
+            C._peer_ring(x, mesh, DATA_AXIS)
+            C.check_ring(device)
+            dist.barrier(group=group)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(PEER_REPEATS):
+                C._peer_ring(x, mesh, DATA_AXIS)
+            end.record()
+            C.check_ring(device)
+            row["ms"] = start.elapsed_time(end) / PEER_REPEATS
+            # the library call: gloo's all_gather_into_tensor on the card's tensors
+            full = torch.empty((ranks * shape[0], shape[1]), device=device)
+            try:
+                lib = lambda: dist.all_gather_into_tensor(full, x, group=group)  # noqa: E731
+                lib()
+                row["library"] = "gloo all_gather_into_tensor (CUDA tensors)"
+            except RuntimeError as exc:
+                lib = lambda: C._all_gather_raw(x, mesh, DATA_AXIS)  # noqa: E731
+                row["library"] = f"gloo all_gather through the host ({str(exc)[:60]})"
+            dist.barrier(group=group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                lib()
+            torch.cuda.synchronize()
+            row["library_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+            dist.barrier(group=group)
+            if me == 0:  # the in-process mode and the plain version, on this rank alone
+                row["in_process_ms"] = device_ms(lambda: C._launch_ring(shards))
+                row["plain_ms"] = device_ms(lambda: torch.cat(shards))
+            dist.barrier(group=group)
+            out["times"].append(row)
+        # a withheld hand-off raises (bounded) on the rank that waits for it, and the next call is right
+        if ranks == 2:
+            shards = _seeded_shards(2, (16, 512), torch.float32, device, 5)
+            saved, C.PEER_TIMEOUT_S = C.PEER_TIMEOUT_S, PEER_TIMEOUT_TEST_S
+            try:
+                t0 = time.perf_counter()
+                try:
+                    C._peer_ring(shards[me], mesh, DATA_AXIS, withhold=me == 1)
+                    C.check_ring(device)
+                    raised = None
+                except RuntimeError as exc:
+                    raised = str(exc)
+                waited = time.perf_counter() - t0
+            finally:
+                C.PEER_TIMEOUT_S = saved
+            if (me == 0) != (raised is not None):
+                raise AssertionError(f"withheld hand-off on rank {me}: raised {raised!r}")
+            out["timeout"] = {"rank": me, "raised": raised, "seconds": waited}
+            dist.barrier(group=group)
+            again = C.ring_all_gather(shards[me], DATA_AXIS, mesh=mesh)
+            if not bit_equal([again], [torch.cat(shards)]):
+                raise AssertionError("peer ring: the call after a withheld hand-off is wrong")
+        # the global losses through the ring against the single-process losses
+        scale = torch.tensor(1 / 0.07, device=device)
+        for name, fn, kinds, expected in (("global_clip_loss", global_clip_loss, 2, 2),
+                                          ("global_mmgclip_loss", global_mmgclip_loss, 3, 4)):
+            full = [l2_normalize(t) for t in _seeded_shards(kinds, (32, 512), torch.float32, device, 13)]
+            local = [t[me * (32 // ranks):(me + 1) * (32 // ranks)].clone().requires_grad_() for t in full]
+            reset_launch_counts()
+            loss, _labels = fn(*local, scale, use_ring_gather=True, mesh=mesh)
+            launched = launch_counts()["ring_all_gather"]
+            loss.backward()
+            ref_in = [t.clone().requires_grad_() for t in full]
+            if kinds == 2:
+                ref = clip_loss(scale * ref_in[0] @ ref_in[1].T, scale * ref_in[1] @ ref_in[0].T)[0]
+            else:
+                ref = mmgclip_loss(*ref_in, scale)[0]
+            ref.backward()
+            rel = abs(loss.item() - ref.item()) / abs(ref.item())
+            rows = slice(me * (32 // ranks), (me + 1) * (32 // ranks))
+            grad = max((a.grad - b.grad[rows]).abs().max().item() for a, b in zip(local, ref_in))
+            if launched != expected or not (rel <= LOSS_REL_TOL and grad <= GRAD_ABS_TOL):
+                raise AssertionError(f"{name} over {ranks} processes: launches {launched}, rel {rel}, "
+                                     f"gradient {grad}")
+            out["checks"].append(f"{name} P={ranks}: rel {rel:.3e}, grad {grad:.3e}, launches {launched}")
+            out["worst"] = max(out["worst"], rel)
+        # ring attention at BERT-base width over the sequence split across the ranks
+        rng = np.random.default_rng(17)
+        b, h, s, d = 2, 12, 512, 64
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32)).to(device)
+                   for _ in range(3))
+        mask = torch.ones((b, s), dtype=torch.int32, device=device)
+        mask[1, 300:] = 0
+        block = slice(me * (s // ranks), (me + 1) * (s // ranks))
+        got = ring_attention(q[:, :, block], k[:, :, block], v[:, :, block], DATA_AXIS,
+                             kv_valid=mask[:, block], mesh=mesh)
+        err = (got - attention_reference(q, k, v, mask)[:, :, block]).abs().max().item()
+        if not err <= ATTN_ABS_TOL:
+            raise AssertionError(f"ring attention over {ranks} processes: max_abs {err}")
+        out["checks"].append(f"ring attention b=2 h=12 s=512 d=64 over {ranks}: max_abs {err:.3e}")
+    C.release_workspaces()
+    return out
+
+
+def _peer_train_checks(device, rank, world, args):
+    """``train_binary_class_clf`` at full width over two processes (data
+    parallel), then ZeRO-1, the TP 2 and PP 2 banks and the EP MoE head."""
+    import torch.distributed as dist
+
+    from mmgclip_tpu_torch.models.projections import MoEProjectionHead
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    from mmgclip_tpu_torch.parallel.expert import shard_moe_params
+    from mmgclip_tpu_torch.parallel.mesh import MODEL_AXIS, create_mesh
+    from mmgclip_tpu_torch.train import build_experiment, run
+
+    tree, root, base = args["tree"], args["root"], args.get("extra", [])
+    out = {}
+
+    def config(name, extra=()):
+        return train_config(os.path.join(root, f"{name}_{rank}"), tree, [
+            f"checkpoints.checkpoints_export_dir={root}/{name}_ckpt", *base, *extra])
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    exp = run(config("dp"), device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out["dp"] = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+                 "steps": exp.timings["epoch_steps"], "epoch_ms": exp.timings["epoch_device_ms"],
+                 "bank_s": exp.timings["bank_s"], "ckpt": exp.ckp_path,
+                 "run_dir": config("dp").base.tensorboard_export_dir}
+    plain_bank = exp._text_bank
+
+    t0 = time.perf_counter()
+    zero = run(config("zero", ["optimizer.config.zero_sharding=true"]), device=device)
+    from mmgclip_tpu_torch.parallel.zero import opt_state_bytes_per_device
+
+    out["zero"] = {"wall_s": time.perf_counter() - t0, "sharded": zero.optimizer.sharded_names(),
+                   "moment_bytes": opt_state_bytes_per_device(zero.optimizer),
+                   "replicated_bytes": opt_state_bytes_per_device(exp.optimizer),
+                   "run_dir": config("zero").base.tensorboard_export_dir}
+    for layout in ("tp2", "pp2"):
+        t0 = time.perf_counter()
+        other = build_experiment(config(layout, [f"parallel={layout}"]), device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        err = ((other._text_bank - plain_bank).abs().max() / plain_bank.abs().max()).item()
+        out[layout] = {"bank_rel": err, "bank_s": time.perf_counter() - t0}
+        if not err <= BANK_REL_TOL:
+            raise AssertionError(f"{layout} bank vs the plain bank: {err}")
+    # the EP MoE head: E = 4 over a model axis of 2, against the replicated head
+    mesh = create_mesh(data=1, model=world)
+    gen = torch.Generator().manual_seed(3)
+    whole = MoEProjectionHead(768, 512, n_experts=4, generator=gen).to(device)
+    split = MoEProjectionHead(768, 512, n_experts=4,
+                              generator=torch.Generator().manual_seed(3)).to(device)
+    shard_moe_params(split, mesh, 4, MODEL_AXIS)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((32, 768)).astype(np.float32)).to(device)
+    (whole(x) ** 2).sum().backward()
+    y = split(x)
+    ((y ** 2).sum() / world).backward()  # the replicated loss, counted once over the ranks
+    router = split.router.grad.clone()
+    dist.all_reduce(router)
+    local = split.w_in.shape[0]
+    lo = rank * local
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    errs = [rel(y, whole(x)), rel(router, whole.router.grad)]
+    for leaf in ("w_in", "b_in", "w_out", "b_out"):
+        errs.append(rel(getattr(split, leaf).grad, getattr(whole, leaf).grad[lo:lo + local]))
+    out["ep"] = {"max_rel": max(errs), "local_experts": local}
+    if not max(errs) <= MOE_REL_TOL:
+        raise AssertionError(f"EP MoE head vs replicated: {errs}")
+    moe = ["parallel=tp2", "projection=moe512", "projection.config.n_experts=4",
+           "scheduler.config.epochs=1"]
+    t0 = time.perf_counter()
+    ep = run(config("ep", moe), device=device)
+    out["ep_train"] = {"expert_sharded": ep._expert_sharded, "wall_s": time.perf_counter() - t0,
+                       "run_dir": config("ep", moe).base.tensorboard_export_dir}
+    # the same run with the head replicated: the same tensor-parallel bank
+    replicated = run(config("tp_moe", moe + ["parallel.expert_sharding=false"]), device=device)
+    out["tp_moe"] = {"expert_sharded": replicated._expert_sharded,
+                     "run_dir": config("tp_moe", moe).base.tensorboard_export_dir}
+    return out
+
+
+def peer_ring_entry(phase21):
+    """The ``kernels`` entry of the ring across processes: phase 21's times
+    at the 2-process training gather, launches from its data-parallel run."""
+    row = phase21["row"]
+    return {"name": "ring_all_gather_peer", "route": "cuda",
+            "source": "mmgclip_tpu_torch/csrc/ring_all_gather.cu",
+            "replaces": "mmgclip_tpu/parallel/collectives.py:189", "launches": phase21["launches"],
+            "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": row["library_ms"],
+            "work": f"2 processes x {row['shape']} fp32 sharing the card, one hop "
+                    f"(the data-parallel trainer's gather); library: {row['library']}"}
+
+
+def phase_parallel(device, tmp, smi, train_run, train_tree):
+    """Phase 21: the ring across 2 and 4 processes on the card, the global
+    losses and ring attention across them, and the trainer data parallel
+    over 2 processes (against phase 14's single-process run) with ZeRO-1,
+    the TP 2 / PP 2 banks and the EP MoE head."""
+    t0 = time.perf_counter()
+    ring = run_peers("ring", 4, tmp)
+    ring_s = time.perf_counter() - t0
+    log(f"    4 processes on the card ({ring_s:.1f} s with their start): stream memory operations "
+        f"{ring[0]['stream_ops']}; {len(ring[0]['checks'])} checks on rank 0, all held:")
+    for line in ring[0]["checks"]:
+        log(f"      {line}")
+    timeout = [r["timeout"] for r in ring if "timeout" in r]
+    log(f"    withheld hand-off (rank 1 keeps its signal, {PEER_TIMEOUT_TEST_S} s deadline): "
+        f"{[(t['rank'], round(t['seconds'], 3), (t['raised'] or '')[:60]) for t in timeout]}; the next call "
+        f"bit-equal")
+    for row in ring[0]["times"]:
+        others = [r["times"] for r in ring[1:] if r["times"]]
+        log(f"    ring across {row['P']} processes, {row['P']} x {row['shape']} fp32 (CUDA events over "
+            f"{PEER_REPEATS} back-to-back calls, rank 0): {row['ms']:.4f} ms; in-process mode "
+            f"{row['in_process_ms']:.4f} ms, plain (torch.cat) {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms (bytes); {row['library']} {row['library_ms']:.4f} ms (host clock) "
+            f"({smi}); other ranks "
+            f"{[t['ms'] for ts in others for t in ts if t['P'] == row['P'] and t['shape'] == row['shape']]}")
+
+    train = phase_parallel_train(device, tmp, train_run, train_tree)
+    row = next(r for r in ring[0]["times"] if r["P"] == 2 and r["shape"] == [16, 512])
+    return {"launches": train["launches"], "row": row, "err": ring[0]["worst"],
+            "seconds": ring_s + train["seconds"]}
+
+
+def phase_parallel_train(device, tmp, train_run, train_tree, extra=()):
+    """Phase 21's training half: two processes against ``train_run`` (a
+    single-process run of the same config).  ``extra`` config overrides and
+    a CPU ``device`` rehearse it off the card."""
+    from mmgclip_tpu_torch.train import build_experiment, run
+    from mmgclip_tpu_torch.training.checkpoint import load_checkpoint
+    from mmgclip_tpu_torch.utils.tb import read_scalars
+    from mmgclip_tpu_torch.weights import flatten_tree
+
+    t0 = time.perf_counter()
+    args = {"tree": list(train_tree), "root": os.path.join(tmp, "dp"), "extra": list(extra)}
+    if device.type == "cpu":
+        args["device"] = "cpu"
+    train = run_peers("train", 2, tmp, args)
+    train_s = time.perf_counter() - t0
+    dp = train[0]["dp"]
+    single = read_scalars(os.path.join(train_run, "runs"))
+    multi = read_scalars(dp["run_dir"])
+    worst = 0.0
+    for tag in ("loss/train", "loss/val"):
+        a, b = np.asarray(multi[tag]), np.asarray(single[tag])
+        rel = np.abs(a - b) / np.abs(b)
+        worst = max(worst, float(rel.max()))
+        log(f"    {tag}: 2 processes {a.tolist()} vs phase 14 {b.tolist()}: max rel {rel.max():.3e} "
+            f"(tol {DP_LOSS_REL_TOL:.0e})")
+    if not worst <= DP_LOSS_REL_TOL:
+        raise AssertionError(f"data-parallel losses vs phase 14: {worst}")
+    with open(os.path.join(train_run, "results", "results.json")) as fh:
+        single_results = json.load(fh)
+    dp_results_path = os.path.join(os.path.dirname(dp["run_dir"]), "results", "results.json")
+    with open(dp_results_path) as fh:
+        same_results = json.load(fh) == single_results
+    counts = dp["launches"]
+    steps = sum(dp["steps"])
+    if counts["ring_all_gather"] != (2 * steps if device.type == "cuda" else 0):
+        raise AssertionError(f"DP training: {counts['ring_all_gather']} ring launches for {steps} steps")
+    log(f"    train_binary_class_clf over 2 processes ({train_s:.1f} s for the whole child group): "
+        f"{steps} steps, launches {counts} (rank 0), epoch ms {[round(m, 2) for m in dp['epoch_ms']]} "
+        f"(CUDA events, eager, gloo gradient all-reduce through the host), bank {dp['bank_s']:.2f} s, "
+        f"run() {dp['wall_s']:.1f} s; results.json {'equal to' if same_results else 'differs from'} "
+        f"phase 14's")
+    zero = train[0]["zero"]
+    zl = read_scalars(zero["run_dir"])
+    zrel = max(float(np.max(np.abs(np.asarray(zl[t]) - np.asarray(multi[t])) / np.abs(np.asarray(multi[t]))))
+               for t in ("loss/train", "loss/val"))
+    if not (zero["sharded"] and zrel <= DP_LOSS_REL_TOL
+            and zero["moment_bytes"] < zero["replicated_bytes"]):
+        raise AssertionError(f"ZeRO-1: {zero}, rel {zrel}")
+    log(f"    ZeRO-1: moments of {zero['sharded']} split, {zero['moment_bytes']} B of moments a rank vs "
+        f"{zero['replicated_bytes']} B replicated; losses vs the DP run max rel {zrel:.3e}")
+    for layout in ("tp2", "pp2"):
+        log(f"    {layout} BERT-base bank vs the plain bank: max_abs / max |plain| "
+            f"{train[0][layout]['bank_rel']:.3e} (tol {BANK_REL_TOL:.0e}), {train[0][layout]['bank_s']:.2f} s")
+    log(f"    EP MoE head (E = 4, model axis 2, {train[0]['ep']['local_experts']} experts a rank) vs the "
+        f"replicated head: outputs and gradients max_abs / max |replicated| "
+        f"{train[0]['ep']['max_rel']:.3e} (tol {MOE_REL_TOL:.0e})")
+    ep_run = train[0]["ep_train"]
+    moe_cfg = train_config(os.path.join(tmp, "moe_single"), train_tree, [
+        *extra, "projection=moe512", "projection.config.n_experts=4", "scheduler.config.epochs=1"])
+    run(moe_cfg, device=device)
+    a = np.asarray(read_scalars(ep_run["run_dir"])["loss/train"])
+    b = np.asarray(read_scalars(moe_cfg.base.tensorboard_export_dir)["loss/train"])
+    r = np.asarray(read_scalars(train[0]["tp_moe"]["run_dir"])["loss/train"])
+    ep_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    split_rel = float(np.max(np.abs(a - r) / np.abs(r)))
+    if not (ep_run["expert_sharded"] and not train[0]["tp_moe"]["expert_sharded"]
+            and ep_rel <= DP_LOSS_REL_TOL and split_rel <= DP_LOSS_REL_TOL):
+        raise AssertionError(f"EP + TP training: {a} vs one process {b}, vs the head replicated {r}")
+    log(f"    EP + TP 2 training (1 epoch): {a.tolist()} vs one process {b.tolist()} (rel {ep_rel:.3e}), "
+        f"vs the head replicated on the same TP bank {r.tolist()} (rel {split_rel:.3e})")
+
+    # the DP checkpoint resumed in one process
+    cfg = train_config(os.path.join(tmp, "dp_resume"), train_tree, [
+        *extra, f"checkpoints.checkpoints_export_dir={os.path.dirname(dp['ckpt'])}",
+        "scheduler.config.epochs=4"])
+    resumed = build_experiment(cfg, device=device)
+    if not resumed.resume():
+        raise AssertionError("the DP checkpoint did not resume in one process")
+    saved = flatten_tree(load_checkpoint(dp["ckpt"])["params"])
+    mine = flatten_tree(resumed._host_params())
+    if any(not np.array_equal(saved[k], mine[k]) for k in saved):
+        raise AssertionError("the resumed params differ from the DP checkpoint's")
+    resumed.run()
+    tail = read_scalars(cfg.base.tensorboard_export_dir)["loss/train"]
+    if not np.isfinite(tail).all():
+        raise AssertionError(f"the resumed run's loss {tail}")
+    log(f"    the DP checkpoint resumed in one process (epoch {resumed.current_epoch}): params equal, "
+        f"epoch 4 train loss {tail}")
+    return {"launches": counts["ring_all_gather"], "seconds": train_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this smoke runs only on a CUDA card")
@@ -3206,7 +3631,15 @@ def main() -> int:
         phase20 = phase_reproduce(device, tmp.name, smi)
         log(f"    phase 20 in {time.perf_counter() - t0:.1f}s")
 
-        # 11. times (after 12-19) --------------------------------------------------------
+        # 21. the parallel layer across processes ----------------------------------------
+        log("[21] the parallel layer across processes sharing the card (gloo): the ring transport "
+            "at P = 2, 4, the global losses, ring attention; train_binary_class_clf data parallel "
+            "over 2 processes, ZeRO-1, the TP 2 / PP 2 banks, the EP MoE head")
+        t0 = time.perf_counter()
+        phase21 = phase_parallel(device, tmp.name, smi, train_run, train_tree)
+        log(f"    phase 21 in {time.perf_counter() - t0:.1f}s")
+
+        # 11. times (after 12-21) --------------------------------------------------------
         log("[11] times (CUDA events, median of 10 after 3 warmup unless stated)")
         kernels = timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts,
                                block_err, flash_err)
@@ -3216,6 +3649,7 @@ def main() -> int:
                           + resnet_times["train_launches"].get(name, 0)
                           for name in ("threefry2x32", "dropout")}
         kernels += timing_dropout(device, peaks, split_launches, dropout_err)
+        kernels.append(peer_ring_entry(phase21))
         for entry in kernels:
             entry["phase20_launches"] = phase20["launches"].get(entry["name"], 0)
         timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_towers,

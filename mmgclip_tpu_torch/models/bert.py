@@ -44,6 +44,37 @@ class BertConfig:
                           max_position_embeddings=128)
 
 
+STACKED = ("qkv_kernel", "qkv_bias", "out_kernel", "out_bias", "attn_norm_scale", "attn_norm_bias",
+           "mlp_in_kernel", "mlp_in_bias", "mlp_out_kernel", "mlp_out_bias", "out_norm_scale",
+           "out_norm_bias")
+
+
+def bert_layer(hidden: torch.Tensor, p: Dict[str, torch.Tensor], attend, cfg: BertConfig,
+               reduce=None) -> torch.Tensor:
+    """One post-LN transformer block over one layer's parameters ``p``.
+    ``reduce`` (the tensor-parallel all-reduce) runs on the attention output
+    and the second MLP product before their biases; ``p`` may hold a block
+    of the heads and of the MLP's hidden units."""
+    b, s, _H = hidden.shape
+    dt = cfg.dtype
+    qkv = torch.einsum("bsh,hknd->bsknd", hidden, weight(p["qkv_kernel"], dt, hidden))
+    qkv = qkv + weight(p["qkv_bias"], dt, hidden)
+    q, k, v = (qkv[:, :, j].permute(0, 2, 1, 3) for j in range(3))
+    ctx = attend(q, k, v).permute(0, 2, 1, 3).reshape(b, s, -1)
+    attn = ctx @ weight(p["out_kernel"], dt, ctx)
+    if reduce is not None:
+        attn = reduce(attn)
+    attn = attn + weight(p["out_bias"], dt, ctx)
+    hidden = layer_norm(hidden + attn, p["attn_norm_scale"], p["attn_norm_bias"], cfg.layer_norm_eps)
+    mlp = hidden @ weight(p["mlp_in_kernel"], dt, hidden) + weight(p["mlp_in_bias"], dt, hidden)
+    mlp = nn.functional.gelu(mlp, approximate="none")
+    mlp = mlp @ weight(p["mlp_out_kernel"], dt, mlp)
+    if reduce is not None:
+        mlp = reduce(mlp)
+    mlp = mlp + weight(p["mlp_out_bias"], dt, mlp)
+    return layer_norm(hidden + mlp, p["out_norm_scale"], p["out_norm_bias"], cfg.layer_norm_eps)
+
+
 def _embedding(rows: int, width: int, generator: torch.Generator) -> ParamGroup:
     # flax nn.Embed's default init: normal with variance 1/width
     return ParamGroup(embedding=torch.randn(rows, width, generator=generator) / math.sqrt(width))
@@ -80,23 +111,24 @@ class BertEncoder(nn.Module):
         for name, value in stacked.items():
             self.register_parameter(name, nn.Parameter(value))
 
+    def layer_params(self, i: int) -> Dict[str, torch.Tensor]:
+        """Layer ``i``'s slice of every stacked parameter."""
+        return {name: getattr(self, name)[i] for name in STACKED}
+
     def _layer(self, hidden: torch.Tensor, i: int, attend) -> torch.Tensor:
         """One post-LN transformer block over layer ``i``'s parameters."""
-        cfg = self.config
-        b, s, H = hidden.shape
-        dt = cfg.dtype
-        qkv = torch.einsum("bsh,hknd->bsknd", hidden, weight(self.qkv_kernel[i], dt, hidden))
-        qkv = qkv + weight(self.qkv_bias[i], dt, hidden)
-        q, k, v = (qkv[:, :, j].permute(0, 2, 1, 3) for j in range(3))
-        ctx = attend(q, k, v).permute(0, 2, 1, 3).reshape(b, s, H)
-        attn = ctx @ weight(self.out_kernel[i], dt, ctx) + weight(self.out_bias[i], dt, ctx)
-        hidden = layer_norm(hidden + attn, self.attn_norm_scale[i], self.attn_norm_bias[i],
-                            cfg.layer_norm_eps)
-        mlp = hidden @ weight(self.mlp_in_kernel[i], dt, hidden) + weight(self.mlp_in_bias[i], dt, hidden)
-        mlp = nn.functional.gelu(mlp, approximate="none")
-        mlp = mlp @ weight(self.mlp_out_kernel[i], dt, mlp) + weight(self.mlp_out_bias[i], dt, mlp)
-        return layer_norm(hidden + mlp, self.out_norm_scale[i], self.out_norm_bias[i],
-                          cfg.layer_norm_eps)
+        return bert_layer(hidden, self.layer_params(i), attend, self.config)
+
+    def embed(self, input_ids: torch.Tensor, token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The three table lookups and the embeddings' LayerNorm."""
+        s = input_ids.shape[1]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids, dtype=torch.int64)
+        hidden = (self.word_embeddings.embedding[input_ids.long()]
+                  + self.position_embeddings.embedding[:s][None]
+                  + self.token_type_embeddings.embedding[token_type_ids.long()])
+        return flax_layer_norm(hidden, self.embeddings_norm.scale, self.embeddings_norm.bias,
+                               self.config.layer_norm_eps)
 
     def _attention(self, mask: torch.Tensor, s: int):
         """The attention function every layer uses for this batch.  With
@@ -120,11 +152,7 @@ class BertEncoder(nn.Module):
             attention_mask = torch.ones(b, s, dtype=torch.int32, device=device)
         if token_type_ids is None:
             token_type_ids = torch.zeros(b, s, dtype=torch.int64, device=device)
-        hidden = (self.word_embeddings.embedding[input_ids.long()]
-                  + self.position_embeddings.embedding[:s][None]
-                  + self.token_type_embeddings.embedding[token_type_ids.long()])
-        hidden = flax_layer_norm(hidden, self.embeddings_norm.scale, self.embeddings_norm.bias,
-                                 cfg.layer_norm_eps)
+        hidden = self.embed(input_ids, token_type_ids)
         attend = self._attention(attention_mask, s)
         for i in range(cfg.num_hidden_layers):
             hidden = self._layer(hidden, i, attend)

@@ -22,7 +22,7 @@ them, and adds the T2T branch for ``MMGCLIPLoss``.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -201,25 +201,38 @@ class MMGCLIP(nn.Module):
             return features
         return self.text_projection(features, train=train, key=key)
 
+    def embed(self, head: Optional[nn.Module], features: torch.Tensor, key: Optional[torch.Tensor],
+              image: bool, train: bool = False) -> torch.Tensor:
+        """The normalized embeddings of stored ``features`` through ``head``
+        (``None``: no head), the image tower first when ``image``."""
+        if image:
+            features = self.apply_image_tower(features)
+        return l2_normalize(features if head is None else head(features, train=train, key=key))
+
     def forward(self, batch: Optional[Dict] = None, train: bool = False,
                 key: Optional[torch.Tensor] = None, validation: bool = False,
                 text_features: Optional[torch.Tensor] = None,
-                text_features2: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                text_features2: Optional[torch.Tensor] = None,
+                embed: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """Full forward (reference: mmgclip_model.py:117-166).
 
         ``text_features`` / ``text_features2`` short-circuit the frozen text
         tower with cached EOS-pooled activations.  ``key``: the step's
         threefry key (an int64 ``[2]`` tensor on the model's device), split
         into the image, text and second text heads' dropout keys as the JAX
-        model splits its ``rng``."""
+        model splits its ``rng``.  ``embed(head, features, key, image)``
+        takes the place of ``self.embed`` (the data-parallel trainer's,
+        which projects this rank's rows and gathers the batch's)."""
         batch = batch or {}
-        image_features = self.apply_image_tower(batch["image_features"])
+        if embed is None:
+            def embed(head, features, head_key, image):
+                return self.embed(head, features, head_key, image, train)
         if text_features is None:
             text_features = self.apply_text_tower(batch["text_tokens"])
         # jax.random.split(key, 3): the image, text and second text heads' dropout keys
         key_img, key_txt, key_txt2 = (None,) * 3 if key is None else dropout_op.split(key, 3)
-        image_embeddings = l2_normalize(self.project_image(image_features, train, key_img))
-        text_embeddings = l2_normalize(self.project_text(text_features, train, key_txt))
+        image_embeddings = embed(self.image_projection, batch["image_features"], key_img, True)
+        text_embeddings = embed(self.text_projection, text_features, key_txt, False)
 
         logit_scale = torch.exp(self.logit_scale)
         output = {
@@ -234,8 +247,7 @@ class MMGCLIP(nn.Module):
             if text_features2 is None and "image_impression_tokens" in batch:
                 text_features2 = self.apply_text_tower(batch["image_impression_tokens"])
             if text_features2 is not None:
-                output["text_embeddings2"] = l2_normalize(
-                    self.project_text(text_features2, train, key_txt2))
+                output["text_embeddings2"] = embed(self.text_projection, text_features2, key_txt2, False)
         return output
 
 

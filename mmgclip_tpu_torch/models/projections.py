@@ -14,7 +14,8 @@ passes on to it (the MoE head's ``n_experts``...).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import contextlib
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -32,6 +33,22 @@ def dropout_folds(n: int):
     return [make_rng_constant([f"Dropout_{i}"]) for i in range(n)]
 
 
+_GLOBAL_ROWS: Optional[Tuple[int, int]] = None  # (first row, global rows) of a data-parallel shard
+
+
+@contextlib.contextmanager
+def global_rows(start: int, total: int):
+    """Inside, a head's batch is rows ``[start, start + n)`` of a global batch
+    of ``total``: dropout draws the global batch's masks and keeps those rows,
+    so a data-parallel rank drops what the single-device run drops."""
+    global _GLOBAL_ROWS
+    previous, _GLOBAL_ROWS = _GLOBAL_ROWS, (int(start), int(total))
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS = previous
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool, key: Optional[torch.Tensor] = None,
             fold: int = 0) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each value with probability ``1 - rate``
@@ -41,6 +58,11 @@ def dropout(x: torch.Tensor, rate: float, train: bool, key: Optional[torch.Tenso
         return x
     if key is None:
         raise ValueError("train-mode dropout needs the head's dropout key")
+    if _GLOBAL_ROWS is not None and x.shape[0] != _GLOBAL_ROWS[1]:
+        start, total = _GLOBAL_ROWS
+        rest = x.new_zeros((total - start - x.shape[0], *x.shape[1:]))
+        full = torch.cat([x.new_zeros((start, *x.shape[1:])), x, rest])
+        return dropout_op.dropout(full, key, fold, rate)[start:start + x.shape[0]]
     return dropout_op.dropout(x, key, fold, rate)
 
 
@@ -200,8 +222,13 @@ class MoEProjectionHead(nn.Module):
         self.w_out = nn.Parameter(lecun_normal((e, p, p), p, g))
         self.b_out = nn.Parameter(torch.zeros(e, p))
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    # set by parallel.expert.shard_moe_params: the mesh and axis the [E, ...]
+    # leaves are split over (each rank then holds E / axis-size experts)
+    expert_mesh = None
+    expert_axis = None
+
+    def route(self, x: torch.Tensor):
+        """The router's (dispatch [n, E, c], combine [n, E, c]) for a batch."""
         n, e = x.shape[0], self.n_experts
         capacity = max(1, int(self.capacity_factor * n / e))
         probs = torch.softmax((x @ self.router).float(), dim=-1)
@@ -213,12 +240,24 @@ class MoEProjectionHead(nn.Module):
         dispatch = (onehot.to(x.dtype)[:, :, None]
                     * (position[:, None] == slots[None, :]).to(x.dtype)[:, None, :])  # [n, e, c]
         gate = (probs.to(x.dtype) * onehot.to(x.dtype)).sum(dim=-1)
-        combine = dispatch * gate[:, None, None]
-        expert_in = torch.einsum("nec,nh->ech", dispatch, x)
+        return dispatch, dispatch * gate[:, None, None]
+
+    def experts(self, expert_in: torch.Tensor) -> torch.Tensor:
+        """The experts this module holds, over their ``[e, c, h]`` inputs."""
         hidden = nn.functional.gelu(torch.einsum("ech,ehp->ecp", expert_in, self.w_in)
                                     + self.b_in[:, None, :], approximate="none")
-        expert_out = torch.einsum("ecp,epq->ecq", hidden, self.w_out) + self.b_out[:, None, :]
-        y = torch.einsum("nec,ecq->nq", combine, expert_out)
+        return torch.einsum("ecp,epq->ecq", hidden, self.w_out) + self.b_out[:, None, :]
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.expert_mesh is not None:
+            from ..parallel.expert import expert_parallel_forward
+
+            y = expert_parallel_forward(self, x)
+        else:
+            dispatch, combine = self.route(x)
+            expert_out = self.experts(torch.einsum("nec,nh->ech", dispatch, x))
+            y = torch.einsum("nec,ecq->nq", combine, expert_out)
         return dropout(y, self.dropout, train, key, self._folds[0])
 
 

@@ -12,14 +12,21 @@ train_exam_reports_clf`` trains the exam-report family (``StudyReportDataset``;
 its eval dataset differs, so there is no test split).  On the card the fused
 epoch runs as a CUDA graph (``training/experiment.py``).
 Runs on the CUDA card unless ``--device`` names another device; with no card
-and no ``--device`` it raises before any work.
+and no ``--device`` it raises before any work.  Under ``torchrun
+--nproc_per_node=P -m mmgclip_tpu_torch.train ...`` each process joins the
+process group from torchrun's environment (``parallel/multihost.py``: nccl
+with a card per rank, gloo otherwise) and the trainer lays the ranks out as
+the JAX trainer lays out devices; rank 0 writes the run.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Dict, List, Optional
+
+import torch
 
 from .cli import compose_run
 from .data.datasets import get_dataset
@@ -84,7 +91,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--device", default=None)
     args, rest = parser.parse_known_args(list(sys.argv[1:] if argv is None else argv))
     device = resolve_device(args.device)  # no card and no --device: raise before any work
-    run(compose_run("train_binary_class_clf", rest), device=device)
+    distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1  # under torchrun
+    if distributed:
+        from .parallel.multihost import initialize_distributed, shutdown
+
+        initialize_distributed(device=args.device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        run(compose_run("train_binary_class_clf", rest, snapshot=not distributed or
+                        int(os.environ.get("RANK", "0")) == 0), device=device)
+    finally:
+        if distributed:
+            shutdown()
     return 0
 
 

@@ -26,13 +26,31 @@ Rebuild of the reference train/validate/test life cycle
 * validation probes (malignancy / mass-shape / BI-RADS zero-shot AUCs, with
   the pooled probe prompts cached) match the reference's metric set.
 
-The JAX trainer shards the batch over a data mesh; on one card there is no
-gather, so this trainer launches no collective.  The JAX package's model /
-pipeline / ZeRO / expert layouts raise here (ROADMAP.md).
+Across processes (``parallel/multihost.py``: one rank each) the trainer
+lays the ranks out as the JAX trainer lays out devices: a [data, model] (or
+[data, pipe]) mesh whose data size is ``gcd(batch, ranks // second)``, with
+the JAX package's errors and warning.  Each rank then takes its rows of
+every batch of the epoch's shared order, projects them (dropout draws the
+global batch's masks, ``projections.global_rows``), and the embeddings are
+gathered (on the card through the ring transport, ``csrc/ring_all_gather.cu``)
+for the global [n, n] loss, which every rank computes whole; a head that is
+not row by row (BatchNorm, MoE) runs on the whole batch.  The loss is
+divided by the mesh's size for the backward and the gradients of the
+replicated parameters are summed over the mesh, which gives the
+single-process gradient.  ``parallel.model_axis`` splits the frozen BERT
+bank's encode in the Megatron layout and, with a MoE head and
+``parallel.expert_sharding``, the experts; ``parallel.pipeline_stages``
+pipelines the bank's layers; ``optimizer.config.zero_sharding`` shards the
+AdamW moments over ``data`` (skipped, as in JAX, when the experts are
+split).  Rank 0 alone writes checkpoints, scalars and ``results.json``, in
+the layout a single-process run of either package reads.  With more than
+one rank the epoch runs eagerly: gloo, which ranks sharing a card use,
+cannot be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Dict, Optional
@@ -46,7 +64,10 @@ from ..ingest.encode import resolve_device
 from ..losses import create_loss
 from ..models.bert import eos_pool, trim_padded_tail
 from ..models.clip import MMGCLIP, l2_normalize
+from ..models.projections import LinearProjectionLayer, MLPProjectionHead, MultiLinearHead, global_rows
 from ..ops import dropout as dropout_op
+from ..parallel import collectives as C
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, batch_rows, create_mesh, process_index, world_size
 from ..prompts.enums import BenignMalignantDatasetLabels, MassShapeLabels
 from ..utils import prng
 from ..utils.logging import logger
@@ -86,21 +107,49 @@ def _epoch_order(n: int, bs: int, drop_last: bool, rng) -> np.ndarray:
     return order
 
 
-def _check_single_device_layout(config) -> None:
-    """The JAX package's multi-device layouts have no counterpart yet: refuse
-    them rather than train a different model silently."""
-    requested = []
-    if int(config.get_path("parallel.model_axis", 1)) > 1:
-        requested.append("parallel.model_axis > 1 (tensor-parallel text tower; with a MoE "
-                         "head also expert sharding)")
-    if int(config.get_path("parallel.pipeline_stages", 1)) > 1:
-        requested.append("parallel.pipeline_stages > 1 (pipelined text tower)")
-    if bool(config.get_path("optimizer.config.zero_sharding", False)):
-        requested.append("optimizer.config.zero_sharding (ZeRO-1 moments)")
-    if requested:
-        raise NotImplementedError(
-            "the PyTorch trainer runs on one device; not ported yet (ROADMAP.md): "
-            + "; ".join(requested))
+# heads whose rows do not depend on each other: a data-parallel rank runs them
+# on its own rows (a BatchNorm or MoE head needs the whole batch)
+_ROW_BY_ROW = (LinearProjectionLayer, MultiLinearHead, MLPProjectionHead)
+
+
+class _NoWriter:
+    """The scalar writer of a rank other than 0."""
+
+    def add_scalar(self, *_args) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def mesh_layout(config, n_ranks: int):
+    """The JAX trainer's mesh rule (mmgclip_tpu/training/experiment.py:137-180)
+    over ``n_ranks`` -> (data size, second axis size, second axis name)."""
+    batch_size = int(config.dataloader.train.batch_size)
+    model_axis = int(config.get_path("parallel.model_axis", 1))
+    pipe_stages = int(config.get_path("parallel.pipeline_stages", 1))
+    if model_axis > 1 and pipe_stages > 1:
+        raise ValueError(
+            "parallel.model_axis and parallel.pipeline_stages are "
+            "alternative layouts for the frozen tower; set at most one > 1")
+    second = max(model_axis, pipe_stages, 1)
+    if n_ranks % second:
+        raise ValueError(f"{n_ranks} devices cannot host a model/pipe axis of size {second}")
+    avail = n_ranks // second
+    data_size = math.gcd(batch_size, avail) if avail else 1
+    if avail > 1 and data_size == 1:
+        raise ValueError(
+            f"dataloader.train.batch_size={batch_size} shares no factor "
+            f"with the {avail} available data-parallel devices — training "
+            f"would silently run on 1 of {avail} chips. Pick a batch size "
+            f"divisible by {avail} (or by a factor of it).")
+    if data_size < avail:
+        logger.warning(
+            f"batch_size={batch_size} is not divisible by the {avail} "
+            f"available data-parallel devices: sharding over "
+            f"{data_size} of {avail} (largest common factor). Use a "
+            f"batch size divisible by {avail} for full data parallelism.")
+    return data_size, second, PIPE_AXIS if pipe_stages > 1 else MODEL_AXIS
 
 
 @EXPERIMENTS.register("classification")
@@ -112,7 +161,6 @@ class ClassifierExperiment:
         start from instead of the seeded init, e.g. the JAX package's."""
         if config is None:
             raise ValueError("Missing training config object.")
-        _check_single_device_layout(config)
         self.config = config
         self.device = resolve_device(device)
         self.train_dataloader = train_dataloader
@@ -136,6 +184,7 @@ class ClassifierExperiment:
         self.model.to(self.device)
         self.params = self.model.trainable_parameters()
         self.model.count_parameters()
+        self._build_mesh(config)
 
         self.loss_name = config.loss.config.loss_name
         self.criterion = create_loss(self.loss_name)
@@ -144,10 +193,7 @@ class ClassifierExperiment:
         # the ResNet fine-tune: only layer4 of the tower trains (the masked chain)
         freeze_mask = (resnet_finetune_mask(self.params)
                        if self.model.image_encoder_name == "ResNet50Encoder" else None)
-        self.optimizer = create_optimizer(self.params,
-                                          float(config.optimizer.config.learning_rate),
-                                          float(config.optimizer.config.weight_decay),
-                                          freeze_mask=freeze_mask)
+        self.optimizer = self._create_optimizer(config, freeze_mask)
         self.scheduler = create_scheduler(config)
         logger.info(f"Using {type(self.scheduler).__name__} scheduler.")
 
@@ -156,7 +202,8 @@ class ClassifierExperiment:
             config.checkpoints.checkpoints_file_name,
         )
         self.early_stopper = EarlyStopper(patience=int(config.base.patience))
-        self.writer = ScalarWriter(config.base.tensorboard_export_dir)
+        self.writer = (ScalarWriter(config.base.tensorboard_export_dir) if self.is_writer
+                       else _NoWriter())
         logger.info(f"Training on {self.device}.")
 
         # ---- frozen-tower text banks -------------------------------------
@@ -180,9 +227,70 @@ class ClassifierExperiment:
         self._feats_bank = None  # built on the first fused epoch
         # the fused epoch as a CUDA graph (on the card; ``use_cuda_graph =
         # False`` keeps it eager there too)
-        self.use_cuda_graph = self.device.type == "cuda"
+        self.use_cuda_graph = self.device.type == "cuda" and not self._dp
+        if self.device.type == "cuda" and self._dp:
+            logger.info("Data parallel over processes: the epoch runs eagerly (the gloo "
+                        "collectives cannot be captured in a CUDA graph).")
         self._graph = self._graph_idx = None
         self._warm_steps = 0
+
+    # ------------------------------------------------------------------
+    # the mesh
+    # ------------------------------------------------------------------
+    def _build_mesh(self, config) -> None:
+        """The JAX trainer's mesh over this process group's ranks; with one
+        rank every path below is the single-device one."""
+        n_ranks = world_size()
+        self._model_axis = int(config.get_path("parallel.model_axis", 1))
+        self._pipe_stages = int(config.get_path("parallel.pipeline_stages", 1))
+        data_size, second, second_name = mesh_layout(config, n_ranks)
+        self._second_name = second_name
+        self.mesh = create_mesh(data=data_size, model=second, ranks=range(data_size * second),
+                                axis_names=(DATA_AXIS, second_name))
+        self.is_writer = process_index() == 0
+        self._dp = self.mesh.size((DATA_AXIS, second_name)) > 1
+        if not self.mesh.member:
+            raise ValueError(f"rank {process_index()} is outside the {data_size}x{second} mesh: "
+                             f"run {data_size * second} processes")
+        self._expert_sharded = False
+        if (self._model_axis > 1 and self.model.projection_name == "MoEProjectionHead"
+                and bool(config.get_path("parallel.expert_sharding", True))):
+            from ..parallel.expert import shard_moe_params
+
+            n_experts = int(config.projection.config.n_experts)
+            for head in ("image_projection", "text_projection"):
+                shard_moe_params(getattr(self.model, head), self.mesh, n_experts, MODEL_AXIS)
+            self.params = self.model.trainable_parameters()
+            self._expert_sharded = True
+            logger.info(f"MoE expert weights sharded over the model axis "
+                        f"({n_experts} experts / {self._model_axis} shards).")
+        logger.info(f"Training over mesh {self.mesh.shape}.")
+
+    def _create_optimizer(self, config, freeze_mask):
+        lr = float(config.optimizer.config.learning_rate)
+        wd = float(config.optimizer.config.weight_decay)
+        zero_requested = bool(config.get_path("optimizer.config.zero_sharding", False))
+        if zero_requested and self._expert_sharded:
+            logger.warning("ZeRO-1 skipped: expert-sharded moments already partition over the mesh.")
+        elif zero_requested and self.mesh.size(DATA_AXIS) > 1:
+            from ..parallel.zero import ZeroAdamW
+
+            logger.info("Optimizer state sharded over the data axis (ZeRO-1).")
+            return ZeroAdamW(self.params, lr, wd, self.mesh, trainable=freeze_mask)
+        optimizer = create_optimizer(self.params, lr, wd, freeze_mask=freeze_mask)
+        if self._expert_sharded:
+            from ..parallel.expert import expert_block, expert_names, gather_experts
+
+            for name, head in expert_names(self.params, self.model).items():
+                optimizer.sharded[name] = (lambda t, h=head: gather_experts(t, h),
+                                           lambda t, h=head: expert_block(t, h))
+        return optimizer
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (after rank 0 wrote a checkpoint)."""
+        group = self.mesh.group((DATA_AXIS, self._second_name))
+        if group is not None:
+            torch.distributed.barrier(group=group)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -194,6 +302,7 @@ class ClassifierExperiment:
         tokens = trim_padded_tail(tokens, getattr(self.model, "text_pad_trim_multiple", 32))
         n = tokens["input_ids"].shape[0]
         outs = []
+        tower = self._text_tower()
         for start in range(0, n, chunk):
             piece = {k: np.asarray(v[start: start + chunk]) for k, v in tokens.items()}
             valid = piece["input_ids"].shape[0]
@@ -201,19 +310,45 @@ class ClassifierExperiment:
             if valid < target:
                 pad = target - valid
                 piece = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)]) for k, v in piece.items()}
+            if self._pipe_stages > 1 and target % self._pipe_stages:
+                # the pipeline splits the chunk into `stages` microbatches
+                extra = -(-target // self._pipe_stages) * self._pipe_stages - target
+                piece = {k: np.concatenate([v, np.repeat(v[-1:], extra, axis=0)])
+                         for k, v in piece.items()}
             # the tower at the bank's trimmed width (apply_text_tower would
             # trim each chunk again)
             ids, mask = (torch.as_tensor(piece[k], device=self.device)
                          for k in ("input_ids", "attention_mask"))
             types = piece.get("token_type_ids")
-            hidden = self.model.text_module(
-                ids, attention_mask=mask,
-                token_type_ids=None if types is None else torch.as_tensor(types, device=self.device))
+            types = None if types is None else torch.as_tensor(types, device=self.device)
+            hidden = tower(ids, mask, types)
             outs.append(eos_pool(hidden, mask)[:valid])
         bank = (torch.cat(outs) if outs
                 else torch.zeros((0, self.model.text_output_dimension), device=self.device))
         logger.info(f"Cached frozen text features for {n} rows.")
         return bank
+
+    def _text_tower(self):
+        """The frozen tower for the bank encode, laid out as the parallel
+        knobs say: Megatron TP over ``model`` or the GPipe pipeline over
+        ``pipe`` for BERT (both equal the plain tower), else the plain one."""
+        from ..models.bert import BertEncoder
+
+        module = self.model.text_module
+        if self._model_axis > 1 and isinstance(module, BertEncoder):
+            from ..parallel.tensor_parallel import shard_text_tower, tp_bert_forward
+
+            shards = shard_text_tower(module, self.mesh)
+            logger.info(f"Frozen text tower TP-sharded over model axis of {self._model_axis}.")
+            return lambda ids, mask, types: tp_bert_forward(module, shards, ids, mask, types,
+                                                            mesh=self.mesh)
+        if self._pipe_stages > 1 and isinstance(module, BertEncoder):
+            from ..parallel.pipeline import pipelined_bert_forward
+
+            logger.info(f"Frozen text tower pipelined over {self._pipe_stages} stages.")
+            return lambda ids, mask, types: pipelined_bert_forward(
+                module, ids, mask, mesh=self.mesh, token_type_ids=types)
+        return lambda ids, mask, types: module(ids, attention_mask=mask, token_type_ids=types)
 
     # ------------------------------------------------------------------
     def _loss(self, image_features, text_features, text_features2, key=None):
@@ -230,11 +365,71 @@ class ClassifierExperiment:
         return keys[1]
 
     def _train_step(self, image_features, text_features, text_features2) -> torch.Tensor:
+        """One step over a whole batch (every rank holds it; with data
+        parallelism each projects its own rows)."""
         self.optimizer.zero_grad()
-        loss, _out = self._loss(image_features, text_features, text_features2, self._step_key())
-        loss.backward()
+        if self._dp:
+            loss = self._dp_loss(image_features, text_features, text_features2, self._step_key())
+            (loss / self.mesh.size((DATA_AXIS, self._second_name))).backward()
+            self._sync_grads()
+        else:
+            loss, _out = self._loss(image_features, text_features, text_features2, self._step_key())
+            loss.backward()
         self.optimizer.step()
         return loss.detach()
+
+    # ------------------------------------------------------------------
+    # data parallelism
+    # ------------------------------------------------------------------
+    def _gather_rows(self, emb: torch.Tensor) -> torch.Tensor:
+        """This rank's embeddings -> the batch's, over ``data`` (the ring
+        transport on the card; its transpose returns each rank its rows'
+        gradient)."""
+        if emb.is_cuda:
+            return C.ring_all_gather_diff(emb, DATA_AXIS, mesh=self.mesh)
+        return C.all_gather(emb, DATA_AXIS, mesh=self.mesh)
+
+    def _dp_embed(self, head, features: torch.Tensor, key, image: bool, rows: slice) -> torch.Tensor:
+        """``MMGCLIP.embed`` of the whole batch, data parallel.  A head that
+        works row by row runs on this rank's rows and its embeddings are
+        gathered; another runs on the whole batch on every rank."""
+        if head is None or isinstance(head, _ROW_BY_ROW):
+            with global_rows(rows.start, features.shape[0]):
+                local = self.model.embed(head, features[rows], key, image, train=True)
+            return self._gather_rows(local)
+        return self.model.embed(head, features, key, image, train=True)
+
+    def _dp_loss(self, image_features, text_features, text_features2, key) -> torch.Tensor:
+        """The model's forward + the criterion, each rank projecting its rows."""
+        rows = batch_rows(self.mesh, image_features.shape[0])
+        out = self.model({"image_features": image_features}, train=True, key=key,
+                         text_features=text_features, text_features2=text_features2,
+                         embed=lambda head, features, head_key, image: self._dp_embed(
+                             head, features, head_key, image, rows))
+        C.check_ring(image_features.device)
+        return self.criterion(**out)[0]
+
+    def _sync_grads(self) -> None:
+        """Sum each parameter's gradient over the ranks that hold it: the
+        whole mesh for a replicated one (ZeRO sums over ``data`` itself),
+        ``data`` for a split expert leaf."""
+        from ..parallel.expert import expert_names
+
+        experts = expert_names(self.params, self.model)
+        zero = hasattr(self.optimizer, "sharded_names")
+        axes = self._second_name if zero else (DATA_AXIS, self._second_name)
+        groups = {axes: [], DATA_AXIS: []}
+        for name, p in self.params.items():
+            if p.grad is not None:
+                groups[DATA_AXIS if name in experts else axes].append(p)
+        for axis, params in groups.items():
+            if not params or self.mesh.size(axis) == 1:
+                continue
+            flat = C.psum(torch.cat([p.grad.reshape(-1) for p in params]), axis, mesh=self.mesh)
+            offset = 0
+            for p in params:
+                p.grad = flat[offset:offset + p.numel()].view_as(p).clone()
+                offset += p.numel()
 
     def _device_batch(self, batch):
         feats = torch.as_tensor(np.asarray(batch["image_features"], np.float32), device=self.device)
@@ -476,9 +671,13 @@ class ClassifierExperiment:
         return {}
 
     def _host_params(self):
+        """The trainable tree on the host (with split experts, gathered: every
+        rank calls it)."""
+        from ..parallel.expert import full_experts
         from ..weights import clip_params_tree
 
-        return clip_params_tree(self.model)
+        with full_experts(self.model):
+            return clip_params_tree(self.model)
 
     def _host_rng_key(self) -> list:
         """``jax.random.key_data(rng_key).tolist()``: the key as written to a checkpoint."""
@@ -488,12 +687,14 @@ class ClassifierExperiment:
         """Restore the train state if a checkpoint exists.  A checkpoint of
         either package restores params, bookkeeping, the AdamW count, moments
         and hyperparams, and the dropout key."""
+        from ..parallel.expert import full_experts
         from ..weights import load_clip_params
 
         if not os.path.isfile(self.ckp_path):
             return False
         state = load_checkpoint(self.ckp_path)
-        load_clip_params(self.model, state["params"])
+        with full_experts(self.model):  # each rank then keeps its experts of the file's
+            load_clip_params(self.model, state["params"])
         opt_state = state.get("torch_opt_state", state.get("opt_state"))
         if opt_state is not None:
             self.optimizer.load_state_dict(opt_state)
@@ -542,7 +743,7 @@ class ClassifierExperiment:
             self.early_stopper(
                 validation_loss=val_loss, epoch=self.current_epoch, params=self._host_params,
                 opt_state=self.optimizer.state_dict, path=self.ckp_path,
-                rng_key=self._host_rng_key, extra=self._scheduler_state(),
+                rng_key=self._host_rng_key, extra=self._scheduler_state(), writer=self.is_writer,
             )
             logger.info(
                 f"Epoch: {self.current_epoch + 1}/{total_epochs} | {elapsed:.1f}s | lr: {lr:.6f} | "
@@ -556,7 +757,12 @@ class ClassifierExperiment:
                 break
 
         if len(self.config.dataset.eval.enum_classes) > 0 and self.test_dataloader is not None:
-            self.test()
+            from ..parallel.expert import full_experts
+
+            with full_experts(self.model):
+                if self.is_writer:  # results.json: rank 0 alone
+                    self.test()
+        self.barrier()
 
         self._time_end = time.time()
         logger.info("Experiment complete. Total time (H:M:S): "

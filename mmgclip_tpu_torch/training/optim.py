@@ -16,7 +16,7 @@ moments, count and rate.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +31,13 @@ class AdamW:
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], learning_rate: float,
                  weight_decay: float, b1: float = B1, b2: float = B2, eps: float = EPS,
-                 trainable: Optional[Dict[str, bool]] = None):
+                 trainable: Optional[Dict[str, bool]] = None,
+                 sharded: Optional[Dict[str, Tuple[Callable, Callable]]] = None):
+        """``sharded``: name -> (gather, shard) for a moment this rank holds
+        only a block of (the expert-sharded heads): ``state_dict`` writes the
+        gathered whole, ``load_state_dict`` keeps this rank's block."""
         self.params = params
+        self.sharded = dict(sharded or {})
         device = next(iter(params.values())).device
         self.trainable = trainable or {name: True for name in params}
         # as in optax: lr and wd are injected float32 scalars, b1/b2/eps plain
@@ -47,21 +52,31 @@ class AdamW:
 
     @torch.no_grad()
     def step(self) -> None:
-        h = self.hyperparams
-        self.count += 1
-        count = self.count.to(torch.float32)
-        c1 = 1 - torch.pow(self.b1, count)
-        c2 = 1 - torch.pow(self.b2, count)
+        c1, c2 = self._advance()
         for name, p in self.params.items():
             if not self.trainable[name]:
                 continue
             g = p.grad if p.grad is not None else torch.zeros_like(p)
-            # in place: a captured CUDA graph keeps reading these buffers
-            mu, nu = self.mu[name], self.nu[name]
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + h["weight_decay"] * p
-            p.add_(update * -h["learning_rate"])
+            p.add_(self._delta(name, g, p, c1, c2))
+
+    def _advance(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Count one step; return optax's bias corrections ``1 - b^count``."""
+        self.count += 1
+        count = self.count.to(torch.float32)
+        return 1 - torch.pow(self.b1, count), 1 - torch.pow(self.b2, count)
+
+    def _delta(self, name: str, g: torch.Tensor, target: torch.Tensor, c1: torch.Tensor,
+               c2: torch.Tensor) -> torch.Tensor:
+        """Update ``name``'s moments from the gradient ``g`` and return the
+        step to add to ``target`` (the parameter, or the block of it whose
+        moments this rank holds)."""
+        h = self.hyperparams
+        # in place: a captured CUDA graph keeps reading these buffers
+        mu, nu = self.mu[name], self.nu[name]
+        mu.copy_((1 - self.b1) * g + self.b1 * mu)
+        nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+        update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + h["weight_decay"] * target
+        return update * -h["learning_rate"]
 
     def zero_grad(self) -> None:
         for p in self.params.values():
@@ -75,11 +90,17 @@ class AdamW:
             return t.detach().cpu().numpy()
 
         def moments(slot):
-            return {k: host(v) if self.trainable[k] else {} for k, v in slot.items()}
+            return {k: host(self._whole(k, v)) if self.trainable[k] else {} for k, v in slot.items()}
 
         return {"count": host(self.count),
                 "hyperparams": {k: host(v) for k, v in self.hyperparams.items()},
                 "mu": moments(self.mu), "nu": moments(self.nu)}
+
+    def _whole(self, name: str, moment: torch.Tensor) -> torch.Tensor:
+        return self.sharded[name][0](moment) if name in self.sharded else moment
+
+    def _block(self, name: str, moment: torch.Tensor) -> torch.Tensor:
+        return self.sharded[name][1](moment) if name in self.sharded else moment
 
     def load_state_dict(self, state: Dict) -> None:
         """Copies into the live tensors (a captured graph reads those).  A
@@ -99,7 +120,7 @@ class AdamW:
                 if key not in given:
                     tensor.zero_()
                     continue
-                value = torch.as_tensor(np.asarray(given[key]))
+                value = self._block(key, torch.as_tensor(np.asarray(given[key])))
                 if tuple(value.shape) != tuple(tensor.shape):
                     raise ValueError(f"optimizer state {slot}.{key}: shape {tuple(value.shape)} "
                                      f"!= {tuple(tensor.shape)}")

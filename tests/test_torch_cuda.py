@@ -27,7 +27,11 @@ CPU within 1e-5 relative L2 (features and ``layer4`` gradients), and its
 fused epoch graphed and resumed after the capture as above; the t-SNE on
 the card against the CPU (KL within 1% relative, trustworthiness within
 0.01); ``convert_convnext --verify`` on the card within 1e-4, and the three
-converters writing the same bytes with the card as with ``--device cpu``.
+converters writing the same bytes with the card as with ``--device cpu``;
+the ring all-gather across 2 and 4 processes sharing the card (gloo)
+bit-equal to ``torch.cat`` with one launch a call, its workspaces mapped and
+freed, a withheld hand-off and a rank that dies each raising within the
+deadline instead of hanging.
 """
 
 import numpy as np
@@ -887,3 +891,113 @@ def test_text_converters_write_the_same_bytes_on_the_card(cuda_device, tmp_path)
         convert_biogpt.main(["--input", snapshot, "--output", str(tmp_path / f"gpt_{name}.msgpack")]
                             + (["--device", device] if device else []))
     assert (tmp_path / "gpt_card.msgpack").read_bytes() == (tmp_path / "gpt_cpu.msgpack").read_bytes()
+
+
+# ----------------------------------------------------------------------
+# the ring across processes (gloo ranks sharing the card)
+# ----------------------------------------------------------------------
+
+_PEER_CHILD = r'''
+import json, os, sys, time
+import numpy as np, torch
+from mmgclip_tpu_torch.parallel import collectives as C
+from mmgclip_tpu_torch.parallel.mesh import DATA_AXIS, create_mesh
+from mmgclip_tpu_torch.parallel.multihost import initialize_distributed, shutdown
+
+rank, world, store, case = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+initialize_distributed(store, world, rank, backend="gloo")
+device = torch.device("cuda", torch.cuda.current_device())
+mesh = create_mesh(data=world)
+rng = np.random.default_rng(0)
+shards = [torch.from_numpy(rng.standard_normal((8, 96)).astype(np.float32)).to(device)
+          for _ in range(world)]
+report = {}
+if case == "gather":
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+    for call in range(3):  # both buffers of the workspace, then the first again
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [s.to(dtype) for s in shards]
+            reset_launch_counts()
+            out = C.ring_all_gather(x[rank], DATA_AXIS, mesh=mesh)
+            assert launch_counts()["ring_all_gather"] == 1, (call, dtype)
+            assert torch.equal(out.view(torch.uint8), torch.cat(x).view(torch.uint8)), (call, dtype)
+    ragged = [s[:3, :5].contiguous() for s in shards]  # 60-byte chunks: byte-wide copies
+    assert torch.equal(C.ring_all_gather(ragged[rank], DATA_AXIS, mesh=mesh), torch.cat(ragged))
+    report["workspaces"] = len(C._WORKSPACES)
+    C.release_workspaces()
+    report["after_release"] = len(C._WORKSPACES)
+elif case == "withhold":
+    C.PEER_TIMEOUT_S = 1.0
+    t0 = time.perf_counter()
+    try:
+        C._peer_ring(shards[rank], mesh, DATA_AXIS, withhold=rank == 1)
+        C.check_ring(device)
+        report["raised"] = ""
+    except RuntimeError as exc:
+        report["raised"] = str(exc)
+    report["seconds"] = time.perf_counter() - t0
+    torch.distributed.barrier()
+    out = C.ring_all_gather(shards[rank], DATA_AXIS, mesh=mesh)
+    report["recovered"] = bool(torch.equal(out, torch.cat(shards)))
+elif case == "dead":
+    C.PEER_TIMEOUT_S = 2.0
+    C.ring_all_gather(shards[rank], DATA_AXIS, mesh=mesh)  # both map the workspaces
+    if rank == 1:
+        os._exit(0)  # a rank that dies without a word
+    try:
+        C.ring_all_gather(shards[rank], DATA_AXIS, mesh=mesh)
+        report["raised"] = ""
+    except RuntimeError as exc:
+        report["raised"] = str(exc)
+    print("report=" + json.dumps(report), flush=True)
+    os._exit(0)
+print("report=" + json.dumps(report), flush=True)
+shutdown()
+'''
+
+
+def run_peer_children(tmp_path, world, case, timeout=180):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    store = "file://" + str(tmp_path / f"pg_{case}")
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, "-c", _PEER_CHILD, str(r), str(world), store, case],
+                              cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    reports = []
+    try:
+        for proc in procs:
+            out, _ = proc.communicate(timeout=timeout)
+            assert proc.returncode == 0, out[-3000:]
+            lines = [line for line in out.splitlines() if line.startswith("report=")]
+            reports.append(json.loads(lines[-1][len("report="):]) if lines else None)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    return reports
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_peer_ring_is_bit_equal_to_cat_and_tears_down(cuda_device, tmp_path, world):
+    """Repeated calls in fp32 and bf16, a ragged shard; one workspace for the
+    size class (every shard here fits the smallest), mapped by every peer,
+    closed and freed by ``release_workspaces``."""
+    reports = run_peer_children(tmp_path, world, "gather")
+    assert all(r["workspaces"] == 1 and r["after_release"] == 0 for r in reports), reports
+
+
+def test_peer_ring_withheld_signal_raises_and_recovers(cuda_device, tmp_path):
+    reports = run_peer_children(tmp_path, 2, "withhold")
+    assert "protocol timeout across processes" in reports[0]["raised"], reports
+    assert reports[1]["raised"] == "" and 0.9 < reports[0]["seconds"] < 30, reports
+    assert all(r["recovered"] for r in reports), reports
+
+
+def test_peer_ring_raises_when_a_rank_dies(cuda_device, tmp_path):
+    reports = run_peer_children(tmp_path, 2, "dead")
+    assert "protocol timeout across processes" in reports[0]["raised"], reports

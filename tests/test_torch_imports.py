@@ -5,7 +5,7 @@ An AST check over every module of ``mmgclip_tpu_torch``, ``chip_smoke.py``,
 ``kernel_ab.py``, ``block_sweep.py`` and ``stem_sweep.py`` refuses imports of the JAX package and of packages that machine does not
 have (scikit-learn and safetensors among them), and a subprocess with those packages blocked in ``sys.modules`` (and
 matplotlib and tensorboard, which the evaluator and the scalar writer only
-try) imports every port module (the tools too), runs the port's t-SNE and
+try) imports every port module (the tools and the parallel layer too), runs the port's t-SNE and
 ``tools.convert_bert`` from a ``model.safetensors`` snapshot, runs the micro serving path on the CPU,
 trains, tests and re-evaluates a tiny run through the ``train`` and
 ``evaluate_clip`` entry points, compares the two result sets through
@@ -71,6 +71,9 @@ def test_port_runs_with_the_missing_packages_blocked(tmp_path):
         new = {{"mmgclip_tpu_torch.models.resnet", "mmgclip_tpu_torch.utils.plot",
                "mmgclip_tpu_torch.tools.compare_runs", "mmgclip_tpu_torch.utils.tsne",
                "mmgclip_tpu_torch.utils.safetensors_lite"}}
+        new |= {{"mmgclip_tpu_torch.parallel." + name for name in (
+            "mesh", "multihost", "collectives", "contrastive", "zero", "expert",
+            "tensor_parallel", "pipeline")}} | {{"mmgclip_tpu_torch.ops.ring_attention"}}
         new |= {{"mmgclip_tpu_torch.tools." + name for name in (
             "convert_convnext", "convert_bert", "convert_biogpt", "fixtures", "reproduce",
             "tsne_eval", "data_efficiency", "eda", "parity_harness", "demo_run",

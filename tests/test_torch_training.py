@@ -479,9 +479,17 @@ def test_train_mode_dropout_masks_equal_flax(name):
 @pytest.mark.parametrize("override", ["parallel=tp2", "parallel=pp2",
                                       "optimizer.config.zero_sharding=true"])
 def test_multi_device_layouts_raise(override):
+    """In one process the layouts follow the JAX trainer's rule over one
+    device: a model or pipe axis of 2 cannot be hosted (its error), and
+    ZeRO-1 over a data axis of 1 leaves the moments whole.  The layouts
+    themselves run across processes (tests/test_torch_train_dp.py)."""
     cfg = compose(CONFIGS, "train_binary_class_clf", [override], run_dir="/tmp/x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        experiment.ClassifierExperiment(config=cfg, device="cpu")
+    if override.startswith("parallel="):
+        with pytest.raises(ValueError, match="1 devices cannot host a model/pipe axis of size 2"):
+            experiment.ClassifierExperiment(config=cfg, device="cpu")
+        return
+    exp = experiment.ClassifierExperiment(config=cfg, device="cpu")
+    assert type(exp.optimizer).__name__ == "AdamW" and exp.mesh.shape == {"data": 1, "model": 1}
 
 
 def test_scalar_writer_and_trace(tmp_path):
