@@ -66,7 +66,17 @@ converted weights (zero-shot AUC within phase 15's 0.005 of the plain
 store's) and ``generate_report`` through the int8 preset (the plain tower's
 decisions), ``tools.tsne_eval`` and the t-SNE alone at 4,096 and 16,384
 points (card vs CPU at 300), then ``data_efficiency``, ``eda``,
-``parity_harness`` and ``demo_run``.
+``parity_harness`` and ``demo_run``.  Phase 21 runs the parallel layer
+across processes sharing the card (gloo): the ring transport, the global
+losses, ring attention and the trainer data parallel.  Phase 22 runs the
+feature store over several devices on phase 8's tree and preset: two tower
+replicas in one process (the card named twice), then ``python -m
+mmgclip_tpu_torch.encode_images`` and ``encode_studies`` (over phase 17's
+studies) as two ranks started with torchrun's environment; every stored
+vector bit-equal to phase 8's (and phase 17's), ``failed.txt`` with each
+failure once, the final table byte-equal, the store kernels launched once
+per shard; the store kernels' rows of the ``kernels`` line count their
+launches in its first run (phase 8's in ``phase8_launches``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks what comes out, and times every kernel beside its plain
@@ -676,10 +686,9 @@ def write_store_tree(root):
     return base, annotated, lists, good, corrupt
 
 
-def store_config(run_dir, tree, out, quant=True, extra=()):
-    """The int8 + fused-glue feature-store preset over the synthetic tree."""
-    from mmgclip_tpu_torch.config import compose
-
+def store_overrides(tree, out, quant=True):
+    """The int8 + fused-glue feature-store preset over the synthetic tree, as
+    ``key=value`` overrides of ``train_binary_class_clf``."""
     base, annotated, lists = tree[:3]
     overrides = ["networks=clip_convnext_fused_tanh_bert",
                  "networks.image_encoder.config.fuse_stem=true",
@@ -690,8 +699,15 @@ def store_config(run_dir, tree, out, quant=True, extra=()):
                  f"base.features_export_dir={out}"]
     if quant:
         overrides.append("networks.image_encoder.config.quant=int8")
+    return overrides
+
+
+def store_config(run_dir, tree, out, quant=True, extra=()):
+    """The composed preset of ``store_overrides``."""
+    from mmgclip_tpu_torch.config import compose
+
     return compose(os.path.join(REPO, "configs"), "train_binary_class_clf",
-                   overrides + list(extra), run_dir=run_dir)
+                   store_overrides(tree, out, quant) + list(extra), run_dir=run_dir)
 
 
 def check_counts(label, counts, expected):
@@ -718,7 +734,8 @@ def extract_store(cfg, rows, good, device, label, expected):
     reset_launch_counts()
     t0 = time.perf_counter()
     n = ex.extract()
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     check_counts(label, counts, expected)
@@ -735,7 +752,8 @@ def extract_store(cfg, rows, good, device, label, expected):
                                                   if r["image_path"] not in good]:
         raise AssertionError(f"{label}: failed.txt reads {failed}")
     log(f"    {label}: {n} images stored in {seconds:.2f}s ({n / seconds:.2f} img/s, host clock, "
-        f"decode and writes included); failed.txt: {failed[0]!r}: {failed[1]!r}")
+        f"decode and writes included: {split_text(ex.timings)}); failed.txt: {failed[0]!r}: "
+        f"{failed[1]!r}")
     return feats, seconds, counts, ex
 
 
@@ -2056,6 +2074,8 @@ def exam_encode(device, root, smi, shapes, tower, text_extra, n_studies):
         f"{split['device_s']:.3f} s, writes {split['write_s']:.3f} s ({smi}); failed.txt: "
         f"{os.path.basename(failed[0])!r}: {failed[1]!r}")
     times["encode_split"] = split
+    times["encode"] = {"argv": argv, "store": store, "final_csv": final_csv,
+                       "n_studies": n_studies, "batch": extractor.batch_size}
 
     views = [[os.path.join(study, f) for f in sorted(os.listdir(study))] for study in studies]
     engine = InferenceEngine(cfg, device=device)
@@ -3387,6 +3407,221 @@ def phase_parallel_train(device, tmp, train_run, train_tree, extra=()):
     return {"launches": counts["ring_all_gather"], "seconds": train_s}
 
 
+STORE_SHARDS = 2              # phase 22: replicas in one process, and ranks sharing the card
+
+
+def _store_rank_main(entry, argv, cwd, out_json):
+    """One rank of phase 22 (b) / (c), started with torchrun's environment:
+    ``mmgclip_tpu_torch.<entry>.main(argv)`` in ``cwd`` with the launch
+    counts set to 0 just before, its ``extract()`` timed (host clock,
+    synchronized); writes the counts and seconds as JSON."""
+    import importlib
+
+    from mmgclip_tpu_torch.ingest import encode
+    from mmgclip_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    on_card = "--device" not in argv
+    if not on_card:
+        torch.set_num_threads(1)  # the CPU rehearsal: the CPU's sums follow the thread count
+    seconds = []
+
+    def timed(extract):
+        def run(self):
+            t0 = time.perf_counter()
+            n = extract(self)
+            if on_card:
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return n
+        return run
+
+    for cls in (encode.ImageFeatureExtractor, encode.StudyFeatureExtractor):
+        cls.extract = timed(cls.extract)
+    os.chdir(cwd)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = importlib.import_module(f"mmgclip_tpu_torch.{entry}").main(argv)
+    with open(out_json, "w") as fh:
+        json.dump({"counts": launch_counts(), "extract_s": sum(seconds),
+                   "main_s": time.perf_counter() - t0}, fh)
+    print("rank_ok=1", flush=True)
+    return rc
+
+
+def run_store_ranks(entry, argv, cwd, tmp):
+    """``STORE_SHARDS`` processes of ``python -m mmgclip_tpu_torch.<entry>``'s
+    main with torchrun's environment (a file store; on one card they share
+    it over gloo); a failing or hanging rank fails the phase.  -> each
+    rank's JSON."""
+    from mmgclip_tpu_torch.parallel.multihost import file_store, spawn
+
+    out_dir = tempfile.mkdtemp(prefix=f"ranks_{entry}_", dir=tmp)
+    store = file_store(out_dir)
+    world = STORE_SHARDS
+
+    def code(rank):
+        env = {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": store}
+        out_json = os.path.join(out_dir, f"rank{rank}.json")
+        return (f"import os, sys\nos.environ.update({env!r})\nimport chip_smoke\n"
+                f"sys.exit(chip_smoke._store_rank_main({entry!r}, {argv!r}, {cwd!r}, {out_json!r}))\n")
+
+    spawn(code, world, PEER_TIMEOUT, "rank_ok=")
+    out = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def store_files(root):
+    """Every file under ``root`` by relative path -> bytes, ``failed.txt`` as
+    its sorted entries (ranks append theirs in any order)."""
+    out = {}
+    for folder, _dirs, files in os.walk(root):
+        for name in files:
+            path = os.path.join(folder, name)
+            with open(path, "rb") as fh:
+                data = fh.read()
+            out[os.path.relpath(path, root)] = (sorted(data.split(b"\n\n")) if name == "failed.txt"
+                                                else data)
+    return out
+
+
+def split_text(split):
+    """``_Encoder.timings`` in words (host clock)."""
+    return (f"decode {split['decode_s']:.3f} s over the threads, waiting on decodes "
+            f"{split['decode_wait_s']:.3f} s, device {split['device_s']:.3f} s, writes "
+            f"{split['write_s']:.3f} s")
+
+
+def sum_counts(runs):
+    counts = {}
+    for run in runs:
+        for kernel, n in run["counts"].items():
+            counts[kernel] = counts.get(kernel, 0) + n
+    return counts
+
+
+def phase_store_devices(device, tmp, smi, tree, rows, store_feats, store_seconds, store_ex, exam):
+    """Phase 22: the feature store over several devices, on phase 8's tree and
+    preset.  (a) ``ImageFeatureExtractor`` with ``STORE_SHARDS`` replicas in
+    one process (the device repeated): each bucket of two split in shards
+    of one; (b) ``python -m mmgclip_tpu_torch.encode_images`` as
+    ``STORE_SHARDS`` ranks (torchrun's environment, gloo, a file store, a
+    wall-clock timeout) over phase 8's weights; (c) ``encode_studies
+    extract_features=true`` over phase 17's studies as ``STORE_SHARDS``
+    ranks; (d) one image in batches of 1, 8 and 16.  Every stored vector
+    bit-equal to phase 8's (and (c)'s files and final table byte-equal to
+    phase 17's), ``failed.txt`` with each failure once, and the store
+    kernels launched once per shard.  -> {"counts_a"}."""
+    from mmgclip_tpu_torch.ingest.encode import shard_items_for_host
+    from mmgclip_tpu_torch.utils.flax_msgpack import to_bytes
+    from mmgclip_tpu_torch.weights import module_tree
+
+    good, on_card = tree[3], device.type == "cuda"
+    shape_of = {p: FFDM_SHAPES[i % 2] for i, p in enumerate(good)}  # write_store_tree's order
+
+    def same_as_phase8(label, feats):
+        differ = [p for p in good if not np.array_equal(feats[p], store_feats[p])]
+        if differ:
+            worst = max(float(np.abs(feats[p] - store_feats[p]).max()) for p in differ)
+            raise AssertionError(f"{label}: {len(differ)} vectors differ from phase 8's (max {worst})")
+        log(f"    {label}: {len(good)} vectors bit-equal to phase 8's single-device store")
+
+    # (a) replicas in one process
+    devices = [device] * STORE_SHARDS
+    cfg = store_config(tmp, tree, os.path.join(tmp, "store22a"))
+    per_bucket = PER_VIEW_LAUNCHES if on_card else {}
+    feats, seconds, counts_a, ex = extract_store(
+        cfg, rows, good, devices, f"(a) {STORE_SHARDS} replicas in one process on {device}",
+        {k: v * len(FFDM_SHAPES) * STORE_SHARDS for k, v in per_bucket.items()})
+    same_as_phase8("(a)", feats)
+    n = len(good)
+    ex.export_dir = os.path.join(tmp, "store22a_again")
+    os.makedirs(ex.export_dir)
+    t0 = time.perf_counter()
+    ex.extract()
+    if on_card:
+        torch.cuda.synchronize()
+    again = time.perf_counter() - t0
+    log(f"    (a) extract() {n / seconds:.2f} img/s, a second run {n / again:.2f} img/s "
+        f"({split_text(ex.timings)}), beside phase 8's {n / store_seconds:.2f} (host clock, decode "
+        f"and writes included; {smi}); batch size {ex.batch_size}")
+
+    # (d, on (a)'s tower) batch composition: one image's vector in batches of
+    # 1, 8 and 16 bit-equal (the store's kernels work per pixel, the tower
+    # pools per image)
+    pixels = torch.from_numpy(np.stack([synthetic_mammogram(*FFDM_SHAPES[0], seed=60 + i)
+                                        for i in range(16)])).to(device)
+    with torch.inference_mode():
+        vecs = {b: ex._encode_fn()(pixels[:b]).float().cpu().numpy() for b in (16, 8, 1)}
+    for b in (8, 1):
+        if not np.array_equal(vecs[b], vecs[16][:b]):
+            raise AssertionError(f"(d) vectors of a batch of {b} differ from the batch of 16's by "
+                                 f"{np.abs(vecs[b] - vecs[16][:b]).max()}")
+    log(f"    (d) batch composition, {list(FFDM_SHAPES[0])} images: vectors in batches of 1 and 8 "
+        f"bit-equal to the batch of 16's")
+
+    # (b) encode_images as ranks, over phase 8's weights
+    weights = os.path.join(tmp, "store22.npz")  # flax bytes; the loader keys on .npz
+    with open(weights, "wb") as fh:
+        fh.write(to_bytes({"params": module_tree(store_ex.module)}))
+    out = os.path.join(tmp, "store22b")
+    argv = store_overrides(tree, out) + [f"networks.image_encoder.convnext_tiny_clf_path={weights}",
+                                         f"hydra.run.dir={os.path.join(tmp, 'run22b')}"]
+    if not on_card:
+        argv = ["--device", "cpu", *argv]
+    ranks = run_store_ranks("encode_images", argv, tmp, tmp)
+    items = [r["image_path"] for r in rows]
+    calls = sum(len({shape_of[p] for p in shard_items_for_host(items, r, STORE_SHARDS) if p in good})
+                for r in range(STORE_SHARDS))
+    check_counts(f"(b) {STORE_SHARDS} ranks of encode_images ({calls} program calls)", sum_counts(ranks),
+                 {k: v * calls for k, v in per_bucket.items()})
+    ex.export_dir = out  # (a)'s extractor maps each image to its file under (b)'s store
+    same_as_phase8("(b)", {p: np.load(ex._export_path(p)).reshape(-1) for p in good})
+    failed = [e for e in store_files(out)["failed.txt"] if e]
+    corrupt = [r["image_path"] for r in rows if r["image_path"] not in good]
+    if [e.split(b"\n")[0].decode() for e in failed] != corrupt:
+        raise AssertionError(f"(b) failed.txt holds {failed}, expected {corrupt} once")
+    slowest = max(r["extract_s"] for r in ranks)
+    log(f"    (b) {n} images over {STORE_SHARDS} ranks: {n / slowest:.2f} img/s (the slower rank's "
+        f"extract(), host clock; ranks {[round(r['extract_s'], 3) for r in ranks]} s, whole entry "
+        f"point {[round(r['main_s'], 2) for r in ranks]} s with the process group and the tower's "
+        f"load) beside phase 8's {n / store_seconds:.2f} ({smi})")
+
+    # (c) encode_studies as ranks over phase 17's studies, into phase 17's store path
+    run = exam["encode"]
+    single = run["store"] + "_phase17"
+    os.rename(run["store"], single)
+    cwd = os.path.join(tmp, "cwd22c")
+    os.makedirs(cwd)
+    argv = run["argv"] if on_card else ["--device", "cpu", *run["argv"]]
+    ranks = run_store_ranks("encode_studies", argv, cwd, tmp)
+    n_studies = run["n_studies"]
+    calls = sum(2 * -(-2 * len(shard_items_for_host(list(range(n_studies)), r, STORE_SHARDS))
+                      // run["batch"]) for r in range(STORE_SHARDS))
+    check_counts(f"(c) {STORE_SHARDS} ranks of encode_studies ({calls} program calls)",
+                 sum_counts(ranks), {k: v * calls for k, v in per_bucket.items()})
+    # phase 17's store also holds the training rows' seeded vectors: (c)'s
+    # files are the encoded studies' and failed.txt, each equal to phase 17's
+    ours, theirs = store_files(run["store"]), store_files(single)
+    differ = sorted(k for k in ours if ours[k] != theirs.get(k))
+    if differ or len(ours) != n_studies + 1:
+        raise AssertionError(f"(c) {len(ours)} files, expected {n_studies + 1}; differing from "
+                             f"phase 17's: {differ[:5]} ({len(differ)})")
+    table = os.path.join(cwd, "data", "exam", "final_reports_dataset.csv")
+    with open(table, "rb") as fa, open(run["final_csv"], "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError("(c) final_reports_dataset.csv differs from phase 17's")
+    slowest = max(r["extract_s"] for r in ranks)
+    log(f"    (c) {n_studies} studies over {STORE_SHARDS} ranks: {len(ours) - 1} study vectors and "
+        f"failed.txt byte-equal to phase 17's, final_reports_dataset.csv byte-equal; "
+        f"{n_studies / slowest:.2f} studies/s (the slower rank's extract(), host clock) beside "
+        f"phase 17's {n_studies / exam['encode_s']:.2f} ({smi})")
+    return {"counts_a": counts_a}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this smoke runs only on a CUDA card")
@@ -3576,7 +3811,7 @@ def main() -> int:
         # 8. the feature-store path ------------------------------------------------
         log("[8] feature store: ImageFeatureExtractor.extract(), ConvNeXt-Tiny int8 + fused "
             "stem/downsample (clip_convnext_fused_tanh_bert), 16-bit full-field PNGs")
-        tree, rows, store_feats, _s, store_counts, store_ex, bf16_enc = phase_feature_store(
+        tree, rows, store_feats, store_s, store_counts, store_ex, bf16_enc = phase_feature_store(
             device, tmp.name)
 
         # 9. the masked paths ------------------------------------------------------
@@ -3639,11 +3874,24 @@ def main() -> int:
         phase21 = phase_parallel(device, tmp.name, smi, train_run, train_tree)
         log(f"    phase 21 in {time.perf_counter() - t0:.1f}s")
 
+        # 22. the feature store over several devices -------------------------------------
+        log(f"[22] the feature store over several devices: {STORE_SHARDS} replicas in one process, "
+            f"encode_images and encode_studies as {STORE_SHARDS} ranks sharing the card (gloo)")
+        t0 = time.perf_counter()
+        phase22 = phase_store_devices(device, tmp.name, smi, tree, rows, store_feats, store_s,
+                                      store_ex, exam_times)
+        log(f"    phase 22 in {time.perf_counter() - t0:.1f}s")
+
         # 11. times (after 12-21) --------------------------------------------------------
         log("[11] times (CUDA events, median of 10 after 3 warmup unless stated)")
         kernels = timing_phase(device, gen, peaks, stage_shapes, ffdm_shape, tokens, counts,
                                block_err, flash_err)
-        kernels += timing_glue(device, gen, peaks, glue_err, store_counts, dw_counts)
+        # the store's kernels count their launches in phase 22 (a), phase 8's beside them
+        glue = timing_glue(device, gen, peaks, glue_err, phase22["counts_a"], dw_counts)
+        for entry in glue:
+            if entry["name"] in PER_VIEW_LAUNCHES:
+                entry["phase8_launches"] = store_counts[entry["name"]]
+        kernels += glue
         kernels.append(timing_ring(device, peaks, smi, ring_launches, ring_err))
         split_launches = {name: exam_times["train_launches"].get(name, 0)
                           + resnet_times["train_launches"].get(name, 0)

@@ -81,3 +81,13 @@ class NativeWordPiece:
         if rc != 0:
             return None
         return ids, mask
+
+
+def native_available() -> bool:
+    """Whether the native encoder's library builds and loads here (a host
+    C++ compiler on ``$PATH``)."""
+    try:
+        load_library()
+    except (OSError, RuntimeError):
+        return False
+    return True

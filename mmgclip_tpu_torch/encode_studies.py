@@ -3,14 +3,16 @@
 
     python -m mmgclip_tpu_torch.encode_studies [--config-name train_exam_reports_clf]
         [--device cpu] [key=value ...]
+    torchrun --nproc_per_node=N -m mmgclip_tpu_torch.encode_studies [key=value ...]
 
 Reads the post-translation CSV (latin1), with ``extract_features=true``
 encodes every study's views through ``StudyFeatureExtractor`` into
 ``base.features_export_dir``, then points each study at its stored vector
 and writes ``data/<post_translation_fileid>/final_reports_dataset.csv``
-under the working directory.  Runs on the CUDA card unless ``--device``
-names another device; with no card and no ``--device`` it raises before any
-work.
+under the working directory.  Runs on every visible card unless
+``--device`` names one device; with no card and no ``--device`` it raises
+before any work.  Under torchrun each rank encodes its share of the
+studies on its own card; after a barrier rank 0 alone writes the table.
 """
 
 from __future__ import annotations
@@ -23,13 +25,16 @@ from .cli import compose_run
 from .data.csv_table import Table, read_csv
 from .data.reports import map_path_to_features
 from .ingest.encode import StudyFeatureExtractor, resolve_device
+from .parallel.mesh import process_index, world_size
+from .parallel.multihost import process_sum, torchrun_session
 from .utils.logging import logger
 from .utils.seeding import seeding
 
 
-def extract(cfg, device=None) -> Tuple[Table, Optional[StudyFeatureExtractor]]:
-    """-> (the final table, the extractor when ``extract_features`` ran:
-    its ``timings`` split the encode into decode, device and write seconds)."""
+def extract(cfg, device=None) -> Tuple[Optional[Table], Optional[StudyFeatureExtractor]]:
+    """-> (the final table, None on ranks other than 0; the extractor when
+    ``extract_features`` ran: its ``timings`` split the encode into decode,
+    device and write seconds)."""
     seeding(int(cfg.base.seed))
 
     path = cfg.dataset.config.post_translation_dataset_path
@@ -39,7 +44,15 @@ def extract(cfg, device=None) -> Tuple[Table, Optional[StudyFeatureExtractor]]:
     extractor = None
     if getattr(cfg, "extract_features", False):
         extractor = StudyFeatureExtractor(config=cfg, dataset=postprocessed.rows, device=device)
-        extractor.extract()
+        total = process_sum(extractor.extract())
+        if process_index() == 0:
+            logger.info(f"Stored {total} study vectors over {world_size()} process(es).")
+    if world_size() > 1:
+        import torch.distributed as dist
+
+        dist.barrier()  # every rank's vectors are on disk before the table looks for them
+        if process_index() != 0:
+            return None, extractor
 
     processed = map_path_to_features(
         postprocessed, cfg, export=True,
@@ -52,8 +65,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--device", default=None)
     args, rest = parser.parse_known_args(list(sys.argv[1:] if argv is None else argv))
-    device = resolve_device(args.device)  # no card and no --device: raise before any work
-    extract(compose_run("train_exam_reports_clf", rest, snapshot=False), device=device)
+    resolve_device(args.device)  # no card and no --device: raise before any work
+    with torchrun_session(args.device):
+        extract(compose_run("train_exam_reports_clf", rest, snapshot=False), device=args.device)
     return 0
 
 

@@ -14,10 +14,12 @@ surface (port of mmgclip_tpu/ingest/encode.py).
   served features ride the chain the stored ones were built with.
 * ``_Encoder`` decodes PNGs on a thread pool with a bounded in-flight
   window, buckets them by shape and dtype (or by rounded shape with
-  ``encode_bucket_rounding``, through the masked tower), and keeps two
-  batches in flight on the device: each batch is copied from pinned memory
-  without blocking and read back only after the next one is queued.  Files
-  that fail to decode are skipped and logged to ``failed.txt``.  Each run
+  ``encode_bucket_rounding``, through the masked tower), splits each batch
+  over its devices (every local card by default: the JAX encoder's
+  ``data`` mesh axis) and keeps two batches in flight: each shard is copied
+  from pinned memory without blocking and read back only after the next
+  batch is queued.  Files that fail to decode are skipped and logged to
+  ``failed.txt``, one append per entry, so several processes may share it.  Each run
   leaves its host-clock split in ``_Encoder.timings``: decode seconds summed
   over the decode threads and the part the main thread waited for them, the
   device seconds (batch assembly, host prepool sums, copies, launches and
@@ -26,16 +28,19 @@ surface (port of mmgclip_tpu/ingest/encode.py).
   mirroring the source tree; ``StudyFeatureExtractor`` one fused vector per
   study.
 
-Everything runs on the CUDA card unless the caller passes ``device="cpu"``.
+Everything runs on the CUDA cards unless the caller passes ``device="cpu"``
+(or a list of devices).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 import time
 from collections import defaultdict, deque
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import replace
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -48,6 +53,7 @@ from ..ops.fusion import fuse_views
 from ..ops.preprocess import intensity_transform, normalize_16bit, to_16bit
 from ..ops.resize import (fit_shape, host_block_sum, resize_to_canvas,
                           resize_to_canvas_from_block_sums)
+from ..parallel.mesh import local_devices
 from ..utils.flax_msgpack import read_file
 from ..utils.logging import logger
 from ..utils.seeding import create_directory_if_not_exists
@@ -76,6 +82,20 @@ def shard_items_for_host(items, process_index: Optional[int] = None,
         process_index = dist.get_rank() if initialised else 0
         process_count = dist.get_world_size() if initialised else 1
     return [item for i, item in enumerate(items) if i % process_count == process_index]
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current card>``, so that equal devices compare equal."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _pad_rows(array: np.ndarray, rows: int) -> np.ndarray:
+    """``array`` with zero rows appended up to ``rows``."""
+    if len(array) == rows:
+        return array
+    return np.concatenate([array, np.zeros((rows - len(array), *array.shape[1:]), array.dtype)])
 
 
 def load_convnext_tower(config, seed: int = 0, device="cpu"):
@@ -257,12 +277,29 @@ def build_masked_encode_program(module, in_ch: int, window=None):
 
 
 class _Encoder:
-    """Shared batched-encode machinery for image- and study-level extractors
-    (one device; multi-GPU data sharding waits for the parallel layer)."""
+    """Shared batched-encode machinery for image- and study-level extractors.
+
+    ``device`` is one device or a sequence of them; None means every device
+    this process owns (``parallel.mesh.local_devices``: every visible card,
+    or this rank's card under a process group).  With n > 1 devices the
+    batches split over a data axis as the JAX encoder's ``data`` mesh splits
+    them: the batch size rounds down to a multiple of n (at least n), each
+    batch is padded with zero rows to a multiple of n (masked pad rows get a
+    ``valid_hw`` of ones), row block i goes to the tower replica on device i,
+    and the results come back in order, cut to the real rows.  Items are
+    split per process first (``shard_items_for_host``).  A device may
+    repeat: its replicas share one module."""
 
     def __init__(self, config, batch_size: int = 32, decode_threads: int = 8,
                  bucket_rounding: int = 0, device=None):
-        self.device = resolve_device(device)
+        if device is None or isinstance(device, (str, torch.device)):
+            devices = local_devices(device)
+        else:
+            devices = [torch.device(d) for d in device]
+        if not devices:
+            raise ValueError("_Encoder needs at least one device")
+        self.devices = [_indexed(d) for d in devices]
+        self.device = self.devices[0]
         self.config = config
         self.batch_size = int(batch_size)
         self.decode_threads = int(decode_threads)
@@ -280,33 +317,48 @@ class _Encoder:
                         "(resize buckets by exact native shape).")
             self.bucket_rounding = 0
         self.module, self.cn_config = load_convnext_tower(config, device=self.device)
+        n = len(self.devices)
+        if n > 1:
+            # batches split evenly over the data axis (the JAX encoder's rounding)
+            self.batch_size = max(self.batch_size, n)
+            self.batch_size -= self.batch_size % n
+            logger.info(f"Encode pipeline sharded over {n} local devices.")
         self._prepool_warned: set = set()  # one k-vs-scale warning per shape
         self._failed_lock = threading.Lock()
         self._decode_seconds: List[float] = []  # appended by the decode threads
         self.timings: Dict[str, float] = {}
 
-    def _encode_fn(self):
-        return build_encode_program(self.module, self.cn_config.in_channels, window=self.window)
+    # the encode programs on ``module`` (a replica), ``self.module`` by default
+    def _encode_fn(self, module=None):
+        return build_encode_program(module or self.module, self.cn_config.in_channels,
+                                    window=self.window)
 
-    def _resized_encode_fn(self):
+    def _resized_encode_fn(self, module=None):
         return build_encode_program(
-            self.module, self.cn_config.in_channels, window=self.window,
+            module or self.module, self.cn_config.in_channels, window=self.window,
             resize_hw=self.resize_hw, resize_method=self.resize_method,
             resize_precision=self.resize_precision, prepool=self.prepool)
 
-    def _masked_encode_fn(self):
-        return build_masked_encode_program(self.module, self.cn_config.in_channels,
+    def _masked_encode_fn(self, module=None):
+        return build_masked_encode_program(module or self.module, self.cn_config.in_channels,
                                            window=self.window)
 
-    def _to_device(self, array: np.ndarray):
-        """Host batch -> (device tensor, host buffer to keep alive until the
-        batch is drained).  On the card the copy leaves pinned memory without
-        blocking, so it overlaps the previous batch's compute."""
+    def _replicas(self) -> List[torch.nn.Module]:
+        """The tower on every device, in device order: ``self.module`` on its
+        own device, one copy for each other device.  Made per run, so a
+        change to ``self.module`` reaches every replica."""
+        by_device = {self.device: self.module}
+        for d in self.devices:
+            if d not in by_device:
+                by_device[d] = copy.deepcopy(self.module).to(d)
+        return [by_device[d] for d in self.devices]
+
+    def _host(self, array: np.ndarray) -> torch.Tensor:
+        """A host batch as a tensor, pinned when a card takes it: each
+        shard's copy then leaves without blocking and overlaps the previous
+        batch's compute.  Kept alive until the batch is drained."""
         host = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-            return host.to(self.device, non_blocking=True), host
-        return host.to(self.device), host
+        return host.pin_memory() if any(d.type == "cuda" for d in self.devices) else host
 
     def _warn_coarse_prepool(self, native_hw, shape) -> None:
         vh, vw = fit_shape(native_hw, self.resize_hw)
@@ -323,24 +375,27 @@ class _Encoder:
 
     def encode_batches(self, items: List[Tuple[str, str]], on_result, failed_path: str):
         """items: (source_path, export_key).  Decoded on a thread pool,
-        bucketed, encoded in batches; ``on_result(key, vector)`` per image."""
+        bucketed, encoded in batches split over the devices;
+        ``on_result(key, vector)`` per image."""
         rounding = self.bucket_rounding
         if self.resize_hw:
-            encode = self._resized_encode_fn()
+            build = self._resized_encode_fn
         elif rounding:
-            encode = self._masked_encode_fn()
+            build = self._masked_encode_fn
         else:
-            encode = self._encode_fn()
+            build = self._encode_fn
+        programs = [build(module) for module in self._replicas()]
+        n = len(self.devices)
         buckets: Dict[Tuple, List[Tuple[str, np.ndarray]]] = defaultdict(list)
-        pending: deque = deque()  # (chunk, device result, host buffer)
+        pending: deque = deque()  # (chunk, per-device results, host buffers)
         clock = time.perf_counter
         self._decode_seconds = []
         split = {"decode_wait_s": 0.0, "device_s": 0.0, "write_s": 0.0}
 
         def drain_one():
             t0 = clock()
-            chunk, result, _host = pending.popleft()
-            feats = result.float().cpu().numpy()
+            chunk, results, _hosts = pending.popleft()
+            feats = torch.cat([r.float().cpu() for r in results])[: len(chunk)].numpy()
             t1 = clock()
             for (key, _px), vec in zip(chunk, feats):
                 on_result(key, vec)
@@ -349,27 +404,36 @@ class _Encoder:
 
         def submit(chunk, shape):
             t0 = clock()
+            rows = -(-len(chunk) // n) * n  # zero rows pad the batch to shard evenly
+            kwargs = {}
             if rounding:
-                canvas = np.zeros((len(chunk), *shape[:2]), chunk[0][1].dtype)
+                canvas = np.zeros((rows, *shape[:2]), chunk[0][1].dtype)
+                valid_hw = np.ones((rows, 2), np.int32)
                 for i, (_k, arr) in enumerate(chunk):
                     canvas[i, : arr.shape[0], : arr.shape[1]] = arr
-                valid_hw = np.asarray([arr.shape[:2] for _k, arr in chunk], np.int32)
-                pixels, host = self._to_device(canvas)
-                result = encode(pixels, torch.from_numpy(valid_hw).to(self.device))
+                    valid_hw[i] = arr.shape[:2]
+                arrays = [canvas, valid_hw]
             else:
                 stack = np.stack([arr for _k, arr in chunk])
                 if self.resize_hw and self.prepool:
-                    # host half of the prepooled chain: the copy carries the
+                    # host half of the prepooled chain: the copies carry the
                     # block sums, 2-4 bytes per k^2 pixels
                     native_hw = tuple(int(d) for d in stack.shape[1:3])
                     self._warn_coarse_prepool(native_hw, shape)
-                    sums, scale = host_prepool(stack, self.prepool)
-                    device_sums, host = self._to_device(sums)
-                    result = encode(device_sums, native_hw=native_hw, scale=scale)
-                else:
-                    pixels, host = self._to_device(stack)
-                    result = encode(pixels)
-            pending.append((chunk, result, host))
+                    stack, scale = host_prepool(stack, self.prepool)
+                    kwargs = {"native_hw": native_hw, "scale": scale}
+                arrays = [_pad_rows(stack, rows)]
+            hosts = [self._host(a) for a in arrays]
+            per = rows // n
+            results = []
+            for i, (device, encode) in enumerate(zip(self.devices, programs)):
+                # this device's stream: its copies and launches queue behind
+                # nothing of the other devices'
+                with torch.cuda.device(device) if device.type == "cuda" else nullcontext():
+                    shard = [h[i * per: (i + 1) * per].to(device, non_blocking=True)
+                             for h in hosts]
+                    results.append(encode(*shard, **kwargs))
+            pending.append((chunk, results, hosts))
             split["device_s"] += clock() - t0
             while len(pending) > 2:
                 drain_one()  # read back older batches while this one runs

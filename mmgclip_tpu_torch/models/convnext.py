@@ -245,12 +245,18 @@ class ConvNeXt(nn.Module):
             x = stage_mod(x, mask)
         if not pool:
             return x
+        # global average pool -> [n, dims[-1]], one reduction per image: a
+        # batched reduction on the card splits each output's sum over as many
+        # blocks as the batch leaves room for, so an image's vector would
+        # follow the other images of its batch (and the device or rank that
+        # encoded it)
         if valid_hw is None:
-            pooled = x.mean(dim=(1, 2))  # global average pool -> [n, dims[-1]]
+            pooled = torch.stack([img.mean(dim=(0, 1)) for img in x])
         else:
             # the sum and the count in fp32: a bf16 count is not exact
             counts = (valid_hw[:, 0] * valid_hw[:, 1]).float()
-            pooled = (x.float().sum(dim=(1, 2)) / torch.clamp(counts, min=1.0)[:, None]).to(x.dtype)
+            sums = torch.stack([img.float().sum(dim=(0, 1)) for img in x])
+            pooled = (sums / torch.clamp(counts, min=1.0)[:, None]).to(x.dtype)
         if not classify:
             return pooled
         h = flax_layer_norm(pooled, self.head_norm.scale, self.head_norm.bias)

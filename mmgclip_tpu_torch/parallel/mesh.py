@@ -18,6 +18,10 @@ block of a process-identical value that this rank holds, the counterpart of
 ``shard_batch`` keeps this rank's rows along (slice, data) and ``replicate``
 the whole value.  With one rank and no process group every helper is the
 identity, so single-process paths run exactly as before.
+
+``local_devices`` is the counterpart of ``jax.local_devices()``: the cards
+this process owns, which the feature-store encode splits its batches over
+(``ingest/encode.py::_Encoder``).
 """
 
 from __future__ import annotations
@@ -52,6 +56,23 @@ def world_size() -> int:
 def process_index() -> int:
     dist = _dist()
     return dist.get_rank() if dist is not None else 0
+
+
+def local_devices(device=None) -> list:
+    """The devices this process owns: with a process group on the card, this
+    rank's card (``cuda:LOCAL_RANK``, as ``initialize_distributed`` selected
+    it); otherwise every visible card.  ``device`` names one device instead
+    (``"cpu"`` runs on the CPU).  No card and no ``device`` raises."""
+    import torch
+
+    if device is not None:
+        return [torch.device(device)]
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the port on the CPU")
+    if _dist() is not None:
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 class Mesh:
@@ -248,6 +269,6 @@ def replicate(mesh: Mesh, tree):
 __all__ = [
     "DATA_AXIS", "MODEL_AXIS", "SLICE_AXIS", "PIPE_AXIS", "EXPERT_AXIS", "Mesh", "NamedSharding",
     "PartitionSpec", "batch_axes", "batch_rows", "batch_sharding", "create_mesh",
-    "create_multislice_mesh", "current_mesh", "process_index", "put_global",
+    "create_multislice_mesh", "current_mesh", "local_devices", "process_index", "put_global",
     "replicate", "replicated", "set_mesh", "shard_batch", "world_size",
 ]

@@ -6,7 +6,9 @@ over ``torch.distributed``:
 
 * ``initialize_distributed`` joins the process group.  Its arguments, or
   ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
-  ``MASTER_PORT``, ``LOCAL_RANK``), say where and who; the backend is chosen
+  ``MASTER_PORT``, ``LOCAL_RANK``; a ``file://`` URL in ``MASTER_ADDR``
+  names a rendezvous file instead of a port), say where and who, and
+  ``torchrun_session`` wraps an entry point's body in that group; the backend is chosen
   explicitly and logged: ``nccl`` when every rank of the host has a card of
   its own, ``gloo`` when ranks share a card (NCCL refuses two ranks on one
   device) or run on the CPU.
@@ -25,13 +27,14 @@ contrastive step of a linear map, ``mh_err``), ``run_put_global_dryrun``
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import subprocess
 import sys
 import tempfile
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
@@ -73,7 +76,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     if process_id is None:
         process_id = int(env.get("RANK", 0))
     if coordinator_address is None:
-        coordinator_address = f"{env.get('MASTER_ADDR', 'localhost')}:{env.get('MASTER_PORT', '29500')}"
+        addr = env.get("MASTER_ADDR", "localhost")
+        # a URL (file://) names the rendezvous itself: no port to collide on
+        coordinator_address = addr if "://" in addr else f"{addr}:{env.get('MASTER_PORT', '29500')}"
     if local_rank is None:
         local_rank = int(env.get("LOCAL_RANK", process_id))
     if local_world_size is None:
@@ -88,6 +93,42 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     dist.init_process_group(chosen, init_method=init_method, world_size=num_processes,
                             rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
     return chosen
+
+
+@contextlib.contextmanager
+def torchrun_session(device: Optional[str] = None) -> Iterator[bool]:
+    """An entry point's body under torchrun: join the process group from
+    torchrun's environment when ``WORLD_SIZE > 1`` and no group is joined
+    yet, and leave it after (``shutdown`` on success; on an error the group
+    is destroyed without the barrier, so the peers' next collective fails
+    instead of waiting).  Yields whether a group is joined."""
+    import torch.distributed as dist
+
+    joined = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized()
+    if joined:
+        initialize_distributed(device=device)
+    try:
+        yield dist.is_initialized()
+    except BaseException:
+        if joined:
+            dist.destroy_process_group()
+        raise
+    if joined:
+        shutdown()
+
+
+def process_sum(value: int) -> int:
+    """``value`` summed over every rank of the process group (itself without
+    one): an ``all_reduce`` of one integer, on the card under nccl."""
+    import torch
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return int(value)
+    on = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else "cpu"
+    total = torch.tensor([int(value)], dtype=torch.int64, device=on)
+    dist.all_reduce(total)
+    return int(total.item())
 
 
 def shutdown() -> None:

@@ -22,7 +22,6 @@ the JAX trainer lays out devices; rank 0 writes the run.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 from typing import Dict, List, Optional
 
@@ -32,6 +31,8 @@ from .cli import compose_run
 from .data.datasets import get_dataset
 from .data.loader import DataLoaders, dataloader_percentage
 from .ingest.encode import resolve_device
+from .parallel.mesh import process_index
+from .parallel.multihost import torchrun_session
 from .training.experiment import create_experiment
 from .utils.logging import logger
 from .utils.seeding import seeding
@@ -91,19 +92,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--device", default=None)
     args, rest = parser.parse_known_args(list(sys.argv[1:] if argv is None else argv))
     device = resolve_device(args.device)  # no card and no --device: raise before any work
-    distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1  # under torchrun
-    if distributed:
-        from .parallel.multihost import initialize_distributed, shutdown
-
-        initialize_distributed(device=args.device)
-        if device.type == "cuda":
+    with torchrun_session(args.device) as joined:
+        if joined and device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
-    try:
-        run(compose_run("train_binary_class_clf", rest, snapshot=not distributed or
-                        int(os.environ.get("RANK", "0")) == 0), device=device)
-    finally:
-        if distributed:
-            shutdown()
+        run(compose_run("train_binary_class_clf", rest, snapshot=process_index() == 0),
+            device=device)
     return 0
 
 

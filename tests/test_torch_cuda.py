@@ -1001,3 +1001,59 @@ def test_peer_ring_withheld_signal_raises_and_recovers(cuda_device, tmp_path):
 def test_peer_ring_raises_when_a_rank_dies(cuda_device, tmp_path):
     reports = run_peer_children(tmp_path, 2, "dead")
     assert "protocol timeout across processes" in reports[0]["raised"], reports
+
+
+# ----------------------------------------------------------------------
+# the feature-store encode over several devices, StepTimer
+
+
+@pytest.mark.parametrize("devices", [("cuda:0", "cuda:0"), ("cuda:0", "cuda:1")])
+def test_encoder_over_devices_is_bit_equal_to_one_card(cuda_device, tmp_path, devices):
+    """``_Encoder`` in the store preset (int8 blocks, fused stem and
+    downsample) with two replicas, on one card or on two, against one
+    device: every vector bit-equal, each replica launching the store
+    kernels once per shard.  Two cards also show the launch on a card other
+    than card 0 (each launch sets its kernel's shared-memory limit on the
+    current card)."""
+    import chip_smoke
+    from mmgclip_tpu_torch.ingest.encode import _Encoder
+    from mmgclip_tpu_torch.ops import reset_launch_counts
+
+    if torch.cuda.device_count() < len(set(devices)):
+        pytest.skip(f"needs {len(set(devices))} CUDA cards")
+    items = []
+    for i, (h, w) in enumerate([(256, 208)] * 3 + [(250, 200)] * 2):
+        path = str(tmp_path / f"view_{i}.png")
+        chip_smoke.write_png16(path, chip_smoke.synthetic_mammogram(h, w, seed=i))
+        items.append((path, path))
+    cfg = chip_smoke.store_config(str(tmp_path), ("", "", ""), str(tmp_path / "store"))
+    feats, counts = {}, {}
+    for devs in (("cuda:0",), devices):
+        encoder = _Encoder(cfg, batch_size=4, device=list(devs))
+        chip_smoke.set_layer_scale(encoder.module, 0.1)
+        out = {}
+        reset_launch_counts()
+        encoder.encode_batches(items, out.__setitem__, str(tmp_path / "failed.txt"))
+        feats[devs], counts[devs] = out, launch_counts()
+    one, two = feats[("cuda:0",)], feats[devices]
+    assert sorted(one) == sorted(two) == sorted(p for p, _k in items)
+    for key, vec in one.items():
+        assert vec.shape == (768,) and np.isfinite(vec).all()
+        assert np.array_equal(two[key], vec), key
+    # one card: 2 buckets, one batch each; two replicas: a launch per shard
+    assert counts[("cuda:0",)]["fused_convnext_block_int8"] == 18 * 2
+    assert counts[devices]["fused_convnext_block_int8"] == 18 * 2 * 2
+    assert counts[devices]["fused_stem"] == 2 * 2 and counts[devices]["fused_ln_downsample"] == 3 * 2 * 2
+
+
+def test_step_timer_waits_for_the_card(cuda_device):
+    from mmgclip_tpu_torch.utils.profiling import StepTimer
+
+    timer = StepTimer()
+    x = torch.ones(8, device=cuda_device)
+    timer.start()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock
+    done = torch.cuda.Event()
+    done.record()
+    elapsed = timer.stop({"step": [x * 2]})
+    assert done.query() and elapsed >= 0.02 and timer.times == [elapsed]

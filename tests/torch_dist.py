@@ -6,7 +6,11 @@ parallel layer's tests.
 failing child kills the rest and raises).  Each child joins a gloo group on
 a file store under ``tmp_path``, runs ``body`` with ``rank``, ``world``,
 ``tmp`` (the directory) and ``save(obj)`` in scope, and the parent gets the
-saved objects by rank.  The children import no JAX.
+saved objects by rank.  With ``torchrun=True`` a child joins no group
+itself: it gets torchrun's environment instead (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, and the file store's URL as
+``MASTER_ADDR``), so the entry points under test join it.  The children
+import no JAX.
 """
 
 import os
@@ -22,7 +26,7 @@ import torch
 torch.set_num_threads(1)
 from mmgclip_tpu_torch.parallel.multihost import initialize_distributed, shutdown
 rank, world, tmp = {rank}, {world}, {tmp!r}
-initialize_distributed({store!r}, world, rank, device="cpu")
+{join}
 
 def save(obj):
     with open(os.path.join(tmp, f"out_{{rank}}.pkl"), "wb") as fh:
@@ -36,11 +40,17 @@ print("done=1", flush=True)
 """
 
 
-def run_ranks(world: int, body: str, tmp_path, timeout: float = 240, name: str = "pg"):
+def run_ranks(world: int, body: str, tmp_path, timeout: float = 240, name: str = "pg",
+              torchrun: bool = False):
     tmp = str(tmp_path)
     store = file_store(tmp, name)
+
     def make(rank: int) -> str:
-        return (PREAMBLE.format(rank=rank, world=world, tmp=tmp, store=store)
+        env = {"RANK": rank, "WORLD_SIZE": world, "LOCAL_RANK": rank, "LOCAL_WORLD_SIZE": world,
+               "MASTER_ADDR": store}
+        join = (f"os.environ.update({ {k: str(v) for k, v in env.items()} !r})" if torchrun
+                else f'initialize_distributed({store!r}, world, rank, device="cpu")')
+        return (PREAMBLE.format(rank=rank, world=world, tmp=tmp, join=join)
                 + textwrap.dedent(body) + EPILOGUE)
 
     spawn(make, world, timeout, "done=")
