@@ -76,7 +76,11 @@ studies) as two ranks started with torchrun's environment; every stored
 vector bit-equal to phase 8's (and phase 17's), ``failed.txt`` with each
 failure once, the final table byte-equal, the store kernels launched once
 per shard; the store kernels' rows of the ``kernels`` line count their
-launches in its first run (phase 8's in ``phase8_launches``).
+launches in its first run (phase 8's in ``phase8_launches``).  Phase 23,
+after the times phase, runs every mode of the port's bench (``python -m
+mmgclip_tpu_torch.bench``: encode, ingest, text, train, report, serve) at full
+width as subprocesses, prints each record and holds the device, the kernels
+each mode launched and the fused tower's feature cosine.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  It checks what comes out, and times every kernel beside its plain
@@ -2570,6 +2574,9 @@ def phase_resnet(device, tmp, smi, tree, micro=False, text=None, shapes=FFDM_SHA
 # phase 20: reproduction from torch artifacts at full width, then the tools
 REPRO_PER_CLASS = 16          # 16 + 16 full-field 16-bit PNGs
 REPRO_EPOCHS = 2
+SWEEP_PER_CLASS = 24          # data_efficiency's tree: 24 + 24 rows, both classes in the test split
+SWEEP_AUC_SIDE = 0.2          # separable rows: min(AUC, 1 - AUC) below it (the side follows the init)
+SWEEP_CPU_AUC_ABS = 1e-6      # the p100 run re-evaluated on the CPU vs test() on the card
 REPRO_BATCHES = ("dataloader.train.batch_size=8", "dataloader.valid.batch_size=2",
                  "dataloader.test.batch_size=2")  # the 32-image tree's splits are 22 / 5 / 5
 CONVERT_VERIFY_TOL = 1e-3     # the JAX converter's --verify bound (tools/convert_convnext.py:79)
@@ -2679,7 +2686,9 @@ def phase_reproduce(device, tmp, smi, shapes=FFDM_SHAPES, tsne_sizes=TSNE_SIZES,
     the plain store's), ``generate_report`` through the int8 preset (the
     plain tower's decisions), ``tsne_eval`` over the run, the t-SNE timed
     alone at ``tsne_sizes`` and held card vs CPU at ``tsne_check_n``, then
-    ``data_efficiency`` (0.5, 1.0; 1 epoch), ``eda``, ``parity_harness`` and
+    ``data_efficiency`` (0.5, 1.0; 1 epoch; on a 24 + 24 store-only tree whose
+    test split holds both classes, an AUC row per fraction), ``eda``,
+    ``parity_harness`` and
     ``demo_run``.  -> {"seconds": {...}, "launches": {kernel: n}} (every
     launch of the phase, step by step: the counts set to 0 before each step
     and read after it)."""
@@ -2698,6 +2707,7 @@ def phase_reproduce(device, tmp, smi, shapes=FFDM_SHAPES, tsne_sizes=TSNE_SIZES,
         reproduce,
         tsne_eval,
     )
+    from mmgclip_tpu_torch.tools.fixtures import build_image_label_tree
     from mmgclip_tpu_torch.utils.tsne import tsne
 
     on_card = device.type == "cuda"
@@ -2882,21 +2892,54 @@ def phase_reproduce(device, tmp, smi, shapes=FFDM_SHAPES, tsne_sizes=TSNE_SIZES,
     data = [f"dataset.config.base_dataset_path={base}",
             f"dataset.config.annotated_dataset_path={annotated}",
             f"dataset.config.lists_dataset_path={lists}"]
+    # the sweep runs on a store-only tree of its own (separable 768-d features,
+    # SWEEP_PER_CLASS a class): its test split holds both classes, so every
+    # fraction's test() reports an AUC (the 32-image tree's 5-image test
+    # split holds one)
+    sweep = build_image_label_tree(os.path.join(root, "sweep_tree"), n_benign=SWEEP_PER_CLASS,
+                                   n_malignant=SWEEP_PER_CLASS, separable=True)
     t0 = time.perf_counter()
     rows = data_efficiency.main([
-        "--fractions", "0.5", "1.0", "--out", os.path.join(root, "sweep"), *device_arg, *data,
-        f"base.features_export_dir={cfg.base.features_export_dir}",
+        "--fractions", "0.5", "1.0", "--out", os.path.join(root, "sweep"), *device_arg,
+        f"dataset.config.base_dataset_path={sweep[0]}",
+        f"dataset.config.annotated_dataset_path={sweep[1]}",
+        f"dataset.config.lists_dataset_path={sweep[2]}", f"base.features_export_dir={sweep[3]}",
         f"networks.image_encoder.convnext_tiny_clf_path={npz}",
         f"networks.text_encoder.weights_path={cfg.networks.text_encoder.weights_path}",
         "scheduler.config.epochs=1", *REPRO_BATCHES])
     seconds["data_efficiency"] = time.perf_counter() - t0
-    # a row per fraction with an AUC; this tree's 5-image test split may hold
-    # one class only, and then test() has no AUC to report (as in JAX)
     for tag in ("p50", "p100"):
         if not os.path.isfile(os.path.join(root, "sweep", tag, "results", "results.json")):
             raise AssertionError(f"data_efficiency wrote no results for {tag}")
-    if {r["fraction"] for r in rows} - {0.5, 1.0}:
-        raise AssertionError(f"data_efficiency rows {rows}")
+    if ({r["fraction"] for r in rows} != {0.5, 1.0}
+            or not all(np.isfinite(r["mean_auc"]) for r in rows)):
+        raise AssertionError(f"data_efficiency rows {rows}: an AUC row per fraction expected")
+    for r in rows:
+        log(f"    data_efficiency row: fraction {r['fraction']}, {r['enum_class']}, {r['method']}, "
+            f"mean AUC {r['mean_auc']}")
+    # the tree separates the classes along one direction, so each AUC sits
+    # near 0 or 1; which side follows the seeded heads after one epoch (the
+    # rows equal JAX's from one init: tests/test_torch_sweep.py).  The p100
+    # run re-evaluated on the CPU must read the card's AUCs.
+    if not all(min(r["mean_auc"], 1 - r["mean_auc"]) < SWEEP_AUC_SIDE for r in rows):
+        raise AssertionError(f"data_efficiency rows {rows}: the separable tree's AUC near 0.5")
+    if on_card:
+        from mmgclip_tpu_torch.evaluate_clip import main as evaluate_main
+
+        p100 = os.path.join(root, "sweep", "p100")
+        evaluate_main(["--experiment_path", p100, "--run_name", "cpu_replay", "--device", "cpu"])
+        results = {}
+        for name, path in (("card", os.path.join(p100, "results", "results.json")),
+                           ("cpu", os.path.join(p100, "cpu_replay", "results.json"))):
+            with open(path) as fh:
+                results[name] = {(enum, method): m["mean_auc"] for enum, methods in json.load(fh).items()
+                                 for method, m in methods.items()
+                                 if isinstance(m, dict) and "mean_auc" in m}
+        if (set(results["card"]) != set(results["cpu"]) or not results["card"] or any(
+                abs(results["card"][k] - results["cpu"][k]) > SWEEP_CPU_AUC_ABS for k in results["card"])):
+            raise AssertionError(f"data_efficiency p100: card {results['card']} vs CPU {results['cpu']}")
+        log(f"    data_efficiency p100 re-evaluated on the CPU: AUCs {results['cpu']} equal the card's "
+            f"(tol {SWEEP_CPU_AUC_ABS})")
     report = eda.main(["--out", os.path.join(root, "eda"), *data])
     want_lines = [f"images: {2 * REPRO_PER_CLASS}", "image_label counts (0=benign, 1=malignant, 2=uncertain):",
                   f"  0: {REPRO_PER_CLASS}"]
@@ -3622,6 +3665,84 @@ def phase_store_devices(device, tmp, smi, tree, rows, store_feats, store_seconds
     return {"counts_a": counts_a}
 
 
+# phase 23: the port's bench, one subprocess of ``python -m mmgclip_tpu_torch.bench``
+# per run at full width; iterations and windows cut to fit the phase in ~150 s
+BENCH_CUTS = {"BENCH_ITERS": "4", "BENCH_WINDOWS": "2"}
+ENCODE_KERNELS = ("fused_convnext_block", "fused_stem", "fused_ln_downsample")
+BENCH_RUNS = (  # (label, env, {key of a timed program's launches in detail: kernels it must show})
+    ("encode 256x256 x 128", {"BENCH_MODE": "encode", "BENCH_IMAGE_SIZE": "256", "BENCH_BATCH": "128",
+                              "BENCH_VARIANTS": "fused_int8", **BENCH_CUTS},
+     {"launches": ENCODE_KERNELS, "fused_int8_launches": ("fused_convnext_block_int8",)}),
+    ("encode 2294x1914 x 2", {"BENCH_MODE": "encode", "BENCH_IMAGE_SIZE": "2294x1914", "BENCH_BATCH": "2",
+                              "BENCH_VARIANTS": "fused_int8", **BENCH_CUTS},
+     {"launches": ENCODE_KERNELS, "fused_int8_launches": ("fused_convnext_block_int8",)}),
+    # the canvas tower is masked: JAX's gate keeps its downsample unfused
+    ("ingest 2294x1914 x 16", {"BENCH_MODE": "ingest", "BENCH_NATIVE_SIZE": "2294x1914",
+                               "BENCH_BATCH": "16", **BENCH_CUTS},
+     {"launches": ("fused_convnext_block", "fused_stem")}),
+    ("text", {"BENCH_MODE": "text", "BENCH_ITERS": "3", "BENCH_WINDOWS": "2"},
+     {"launches_by_program.flash_trimmed": ("flash_attention",)}),
+    # the timed epochs are graph replays; the captured step splits its key
+    # (a linear head draws no dropout)
+    ("train", {"BENCH_MODE": "train"}, {"capture_launches": ("threefry2x32",)}),
+    ("report", {"BENCH_MODE": "report"}, {}),
+    # the timed classify traffic carries features: the kernels run in the
+    # encode and fresh-prompt sessions
+    ("serve", {"BENCH_MODE": "serve", "BENCH_ITERS": "32"},
+     {"session_launches.encode": ("fused_convnext_block",),
+      "session_launches.fresh_prompts": ("flash_attention",)}),
+)
+BENCH_PHASE_S = 150           # the phase's time budget (printed against, not enforced)
+
+
+def phase_bench(name):
+    """Phase 23: every mode of the port's bench on the card at full width,
+    each a subprocess as a user runs it; each record printed on its own
+    line.  Fails unless every record parses with a finite positive value,
+    names the card in ``detail.device``, shows its mode's kernels in the
+    launches of the timed programs that run them (``detail.launches``: the
+    program behind ``value``), and (encode) the fused tower's features agree
+    with the plain tower's within phase 10's cosine bound."""
+    records = {}
+    t_phase = time.perf_counter()
+    for label, env_extra, kernels in BENCH_RUNS:
+        env = {k: v for k, v in os.environ.items() if k != "BENCH_PLATFORM"}
+        env.update(env_extra)
+        cuts = {k: v for k, v in env_extra.items() if k in ("BENCH_ITERS", "BENCH_WINDOWS")}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mmgclip_tpu_torch.bench"], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"bench {label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        line = proc.stdout.strip().splitlines()[-1]
+        record = json.loads(line)
+        log(f"    bench {label} ({seconds:.1f}s; cuts {cuts or 'none'}): {line}")
+        detail = record["detail"]
+        if not (isinstance(record["value"], (int, float)) and np.isfinite(record["value"])
+                and record["value"] > 0 and np.isfinite(record["vs_baseline"])):
+            raise AssertionError(f"bench {label}: value {record['value']}, vs_baseline "
+                                 f"{record['vs_baseline']}")
+        if not isinstance(detail["device"], dict) or detail["device"]["name"] not in name:
+            raise AssertionError(f"bench {label}: device {detail['device']} is not {name}")
+        for key, want in kernels.items():
+            launched = detail
+            for part in key.split("."):
+                launched = launched[part]
+            missing = [k for k in want if not launched.get(k)]
+            if missing:
+                raise AssertionError(f"bench {label}: no launches of {missing} in {key} {launched}")
+        if record["detail"].get("fused_min_feature_cosine") is not None:
+            cos = detail["fused_min_feature_cosine"]
+            log(f"    bench {label}: fused vs plain tower min cosine {cos} (int8 fused "
+                f"{detail.get('fused_int8_min_feature_cosine')})")
+            if not cos >= FEATURE_COSINE_MIN:
+                raise AssertionError(f"bench {label}: fused feature cosine {cos} < {FEATURE_COSINE_MIN}")
+        records[label] = record
+    log(f"    phase 23 in {time.perf_counter() - t_phase:.1f}s (budget {BENCH_PHASE_S}s)")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; this smoke runs only on a CUDA card")
@@ -3934,6 +4055,13 @@ def main() -> int:
         plain_engine.close()
     finally:
         tmp.cleanup()
+
+    # 23. the port's bench ------------------------------------------------------------
+    log("[23] the port's bench: python -m mmgclip_tpu_torch.bench in every mode at full width "
+        "(encode 256 x 128 and 2294x1914 x 2, fused and int8; ingest 2294x1914 x 16; text, "
+        "train, report, serve)")
+    torch.cuda.empty_cache()  # the subprocesses take the card's memory
+    phase_bench(name)
 
     log(f"    smoke wall time {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))

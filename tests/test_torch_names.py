@@ -1,4 +1,5 @@
-"""Every public name of the JAX package has a counterpart in the port.
+"""Every public name of the JAX package, its root scripts and its tools has a
+counterpart in the port.
 
 An ``ast`` walk of both source trees (nothing is imported).  For every
 module ``mmgclip_tpu/<path>``, each public top-level name it defines (a
@@ -12,6 +13,14 @@ eagerly, which keeps their modules free of import cycles).
 
 The table is checked too: every entry names a JAX name that exists and has
 no same-named counterpart, so a name ported later leaves the table.
+
+The root scripts of the JAX system (``train.py`` ... ``bench.py``) map to
+``mmgclip_tpu_torch/<name>.py`` and each ``tools/<name>.py`` to
+``mmgclip_tpu_torch/tools/<name>.py``: each public name a script defines
+must be defined in its counterpart too, or stand in ``SCRIPT_COUNTERPARTS``
+with the reason.  Every ``.py`` file at the repository's root is one of
+those scripts, one of the port's own root scripts, or in ``NOT_PORTED``
+with the reason, so a new script fails here until it is placed.
 """
 
 import ast
@@ -77,6 +86,36 @@ COUNTERPARTS = {
     ("training/checkpoint.py", "load_checkpoint_orbax"): (
         None, "not ported: orbax's OCDBT / zarr3 format goes through tensorstore and JAX, "
         "which the card's machine lacks; no entry point, config or tool calls it"),
+}
+
+
+# the JAX system's root scripts; each has mmgclip_tpu_torch/<name>.py
+JAX_SCRIPTS = ("train", "encode_images", "encode_studies", "evaluate_clip", "evaluate_cnn",
+               "generate_report", "serve", "bench")
+# the port's own root scripts (the card's smoke run and kernel timing tools)
+PORT_SCRIPTS = ("chip_smoke", "kernel_ab", "block_sweep", "stem_sweep")
+NOT_PORTED = {
+    "__graft_entry__.py": (
+        "the JAX driver's compile check and multi-chip dry run; its rehearsals have "
+        "counterparts in parallel/multihost.py::run_*_dryrun and chip_smoke.py phase 21"),
+}
+TOOLS_ROOT = os.path.join(REPO, "tools")
+SCRIPT_ROOT = "a script's repository root, put on sys.path to run it as a file; the port's " \
+    "tools run as package modules (python -m) and find configs/ through cli.DEFAULT_CONFIG_DIR"
+# (script path from the repo root, name) -> (the port's counterpart "path::name" or None, why)
+SCRIPT_COUNTERPARTS = {
+    ("tools/compare_runs.py", "REPO"): (None, SCRIPT_ROOT),
+    ("tools/data_efficiency.py", "REPO"): (None, SCRIPT_ROOT),
+    ("tools/eda.py", "REPO"): (None, SCRIPT_ROOT),
+    ("tools/demo_run.py", "DEMO"): (
+        "tools/demo_run.py::main",
+        "the JAX demo's fixed outputs/demo tree; the port writes under --out (default "
+        "outputs/demo_torch) and refuses outputs/demo, which holds the JAX tool's run"),
+    ("tools/demo_run.py", "RUN"): ("tools/demo_run.py::main", "<--out>/run, see DEMO"),
+    ("tools/demo_run.py", "DATA"): ("tools/demo_run.py::main", "<--out>/data, see DEMO"),
+    ("tools/make_vocab_fixture.py", "OUT"): (
+        "tools/make_vocab_fixture.py::main",
+        "the JAX script's fixed tests/data path; the port's main takes --out"),
 }
 
 
@@ -155,6 +194,41 @@ def test_every_table_entry_is_needed_and_points_somewhere(key):
     else:
         assert name in bound_names(os.path.join(JAX_ROOT, module), imports=False)
         assert name in missing_names(module), f"{module}::{name} now has a same-named counterpart"
+    if counterpart is not None:
+        path, target = counterpart.split("::")
+        assert target in bound_names(os.path.join(PORT_ROOT, path)), counterpart
+
+
+def scripts():
+    """Repo-relative paths of the JAX system's scripts."""
+    tools = sorted(f for f in os.listdir(TOOLS_ROOT) if f.endswith(".py"))
+    return [f"{name}.py" for name in JAX_SCRIPTS] + [f"tools/{f}" for f in tools]
+
+
+def test_every_root_script_is_placed():
+    root = {f for f in os.listdir(REPO) if f.endswith(".py")}
+    ours = {f"{name}.py" for name in JAX_SCRIPTS} | {f"{name}.py" for name in PORT_SCRIPTS}
+    assert root - ours == set(NOT_PORTED), "root scripts neither mapped, the port's nor listed"
+    assert ours <= root, sorted(ours - root)
+
+
+@pytest.mark.parametrize("script", scripts())
+def test_every_script_name_has_a_counterpart(script):
+    port_path = os.path.join(PORT_ROOT, script)
+    assert os.path.exists(port_path), f"{script} has no counterpart mmgclip_tpu_torch/{script}"
+    missing = bound_names(os.path.join(REPO, script), imports=False) - bound_names(port_path)
+    unlisted = sorted(n for n in missing if (script, n) not in SCRIPT_COUNTERPARTS)
+    assert not unlisted, (f"{script}: {unlisted} have no counterpart in "
+                          f"mmgclip_tpu_torch/{script} and no entry in SCRIPT_COUNTERPARTS")
+
+
+@pytest.mark.parametrize("key", sorted(SCRIPT_COUNTERPARTS), ids=lambda k: f"{k[0]}::{k[1]}")
+def test_every_script_table_entry_is_needed(key):
+    script, name = key
+    counterpart, reason = SCRIPT_COUNTERPARTS[key]
+    assert reason
+    assert name in bound_names(os.path.join(REPO, script), imports=False)
+    assert name not in bound_names(os.path.join(PORT_ROOT, script)), f"{script}::{name} is ported"
     if counterpart is not None:
         path, target = counterpart.split("::")
         assert target in bound_names(os.path.join(PORT_ROOT, path)), counterpart

@@ -8,7 +8,6 @@ return the JAX ``decode_png``'s array bit for bit.
 
 import os
 import struct
-import subprocess
 import zlib
 
 import numpy as np
@@ -16,6 +15,7 @@ import pytest
 
 from mmgclip_tpu.ingest import png_reader as jax_png
 from mmgclip_tpu_torch.ingest.png_reader import decode_png
+from torch_shims import load_jax_shim
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
@@ -27,11 +27,9 @@ CASES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2
 
 @pytest.fixture(scope="module")
 def jax_decode():
-    """The JAX reader with its native shim (built from native/ if absent)."""
-    if not os.path.isfile(os.path.join(REPO, "native", "libmmg_png.so")):
-        subprocess.run(["make", "-C", os.path.join(REPO, "native")], capture_output=True)
-    jax_png._LIB_TRIED = False
-    if jax_png._load_native() is None:
+    """The JAX reader with its native shim (built from native/ if absent;
+    ``torch_shims.load_jax_shim`` waits out builds in other test processes)."""
+    if load_jax_shim(jax_png, "libmmg_png.so") is None:
         pytest.skip("the JAX package's native PNG shim cannot be built here")
     return jax_png.decode_png
 

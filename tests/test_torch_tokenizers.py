@@ -33,6 +33,7 @@ from mmgclip_tpu_torch.data.moses import in_ranges, moses_tokenize
 from mmgclip_tpu_torch.data.native_wordpiece import NativeWordPiece
 from mmgclip_tpu_torch.data.tokenizer import Tokenizer, WordPieceTokenizer, learn_bpe_from_corpus
 from mmgclip_tpu_torch.ops import _build
+from torch_shims import load_jax_shim
 
 VOCAB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "vocab_fixture.txt")
 MOSES = sacremoses.MosesTokenizer(lang="en")
@@ -80,8 +81,7 @@ def test_native_wordpiece_builds_from_the_ports_own_source():
 @pytest.mark.parametrize("vocab", ["corpus", "fixture"])
 @pytest.mark.parametrize("max_len", [2, 8, 64])
 def test_native_wordpiece_equals_python_and_jax(vocab, max_len, fixture_reports):
-    from mmgclip_tpu.data.native_wordpiece import NativeWordPiece as JaxNative
-    from mmgclip_tpu.data.native_wordpiece import native_available
+    from mmgclip_tpu.data import native_wordpiece as jax_native
 
     ours = WordPieceTokenizer() if vocab == "corpus" else WordPieceTokenizer.from_vocab_file(VOCAB)
     texts = [t for t in bank_sentences() + fixture_reports + ADVERSARIAL if t.isascii()]
@@ -91,8 +91,8 @@ def test_native_wordpiece_equals_python_and_jax(vocab, max_len, fixture_reports)
     python._native_tried = True  # the pure-Python path
     want = python(texts, max_length=max_len)
     assert np.array_equal(native[0], want["input_ids"]) and np.array_equal(native[1], want["attention_mask"])
-    if native_available():
-        theirs = JaxNative(ours.vocab).encode_batch(texts, max_len)
+    if load_jax_shim(jax_native, "libmmg_wordpiece.so") is not None:
+        theirs = jax_native.NativeWordPiece(ours.vocab).encode_batch(texts, max_len)
         assert np.array_equal(native[0], theirs[0]) and np.array_equal(native[1], theirs[1])
 
 
