@@ -1051,7 +1051,7 @@ def timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_
         log(f"    encode program {label}, {size}: {ms:.2f} ms = {1e3 * n / ms:.2f} img/s")
 
     # extract() end to end on the host clock, a second time into a fresh dir,
-    # with its decode / device / write split (host clock, _Encoder.timings)
+    # with its decode / decode-wait / write split (host clock, _Encoder.timings)
     from mmgclip_tpu_torch.ingest.encode import ImageFeatureExtractor
 
     ex = ImageFeatureExtractor(config=store_ex.config, dataset=store_ex.dataset, device=device)
@@ -1068,8 +1068,7 @@ def timing_programs(device, engine, store_ex, resize_ex, round_ex, bf16_enc, dw_
     log(f"    extract() of {n} full-field PNGs (int8 preset), second run: {seconds:.3f} s = "
         f"{n / seconds:.2f} img/s (host clock, decode and writes included; {smi}); decode "
         f"{split['decode_s']:.3f} s summed over {ex.decode_threads} threads, of which the main "
-        f"thread waited {split['decode_wait_s']:.3f} s; device (assembly, copies, launches, "
-        f"read-backs) {split['device_s']:.3f} s; .npy writes {split['write_s']:.3f} s")
+        f"thread waited {split['decode_wait_s']:.3f} s; .npy writes {split['write_s']:.3f} s")
 
     # one full-field file with every row Paeth-filtered: the compiled unfilter
     # against the plain numpy / Python one (the unfilter swapped in the reader)
@@ -2074,8 +2073,8 @@ def exam_encode(device, root, smi, shapes, tower, text_extra, n_studies):
     log(f"    encode_studies: {n_studies} studies in {times['encode_s']:.2f} s = "
         f"{n_studies / times['encode_s']:.2f} studies/s ({4 * n_studies / times['encode_s']:.2f} "
         f"views/s; host clock, decode and writes included): decode {split['decode_s']:.3f} s summed "
-        f"over the threads, waiting on decodes {split['decode_wait_s']:.3f} s, device "
-        f"{split['device_s']:.3f} s, writes {split['write_s']:.3f} s ({smi}); failed.txt: "
+        f"over the threads, waiting on decodes {split['decode_wait_s']:.3f} s, writes "
+        f"{split['write_s']:.3f} s ({smi}); failed.txt: "
         f"{os.path.basename(failed[0])!r}: {failed[1]!r}")
     times["encode_split"] = split
     times["encode"] = {"argv": argv, "store": store, "final_csv": final_csv,
@@ -3534,8 +3533,7 @@ def store_files(root):
 def split_text(split):
     """``_Encoder.timings`` in words (host clock)."""
     return (f"decode {split['decode_s']:.3f} s over the threads, waiting on decodes "
-            f"{split['decode_wait_s']:.3f} s, device {split['device_s']:.3f} s, writes "
-            f"{split['write_s']:.3f} s")
+            f"{split['decode_wait_s']:.3f} s, writes {split['write_s']:.3f} s")
 
 
 def sum_counts(runs):

@@ -20,10 +20,18 @@ surface (port of mmgclip_tpu/ingest/encode.py).
   from pinned memory without blocking and read back only after the next
   batch is queued.  Files that fail to decode are skipped and logged to
   ``failed.txt``, one append per entry, so several processes may share it.  Each run
-  leaves its host-clock split in ``_Encoder.timings``: decode seconds summed
-  over the decode threads and the part the main thread waited for them, the
-  device seconds (batch assembly, host prepool sums, copies, launches and
-  read-backs) and the seconds of the result callbacks (the ``.npy`` writes).
+  leaves host-clock seconds in ``_Encoder.timings``: ``decode_s`` summed over
+  the decode threads, ``decode_wait_s`` the main thread waited for them and
+  ``write_s`` in the result callbacks (the ``.npy`` writes).  Under a
+  ``torch.profiler`` session a run also records spans
+  (``utils/profiling.py``), children of one ``encode.pass``, on the same
+  clock readings: on the main thread ``encode.decode_wait`` per item,
+  ``encode.assemble`` (stack, pad, canvas or host prepool, pinning) and
+  ``encode.submit`` (copies and launches) per batch, ``encode.readback`` and
+  ``encode.write`` per drained batch; ``encode.decode`` per image on the
+  decode threads; ``encode.device`` per batch and card, from a CUDA event
+  before the shard's first copy to one after its last launch.  Batch ids
+  run 0, 1, ... within the call.
 * ``ImageFeatureExtractor`` writes one ``[1, 768, 1, 1]`` ``.npy`` per image
   mirroring the source tree; ``StudyFeatureExtractor`` one fused vector per
   study.
@@ -56,6 +64,7 @@ from ..ops.resize import (fit_shape, host_block_sum, resize_to_canvas,
 from ..parallel.mesh import local_devices
 from ..utils.flax_msgpack import read_file
 from ..utils.logging import logger
+from ..utils.profiling import TRACER, DeviceClock, tracing
 from ..utils.seeding import create_directory_if_not_exists
 from .png_reader import decode_png
 
@@ -376,7 +385,8 @@ class _Encoder:
     def encode_batches(self, items: List[Tuple[str, str]], on_result, failed_path: str):
         """items: (source_path, export_key).  Decoded on a thread pool,
         bucketed, encoded in batches split over the devices;
-        ``on_result(key, vector)`` per image."""
+        ``on_result(key, vector)`` per image.  Under a ``torch.profiler``
+        session the call records its spans (module docstring)."""
         rounding = self.bucket_rounding
         if self.resize_hw:
             build = self._resized_encode_fn
@@ -387,23 +397,46 @@ class _Encoder:
         programs = [build(module) for module in self._replicas()]
         n = len(self.devices)
         buckets: Dict[Tuple, List[Tuple[str, np.ndarray]]] = defaultdict(list)
-        pending: deque = deque()  # (chunk, per-device results, host buffers)
-        clock = time.perf_counter
+        # (batch id, chunk, per-device results, host buffers, device event pairs)
+        pending: deque = deque()
+        clock = time.perf_counter_ns
         self._decode_seconds = []
-        split = {"decode_wait_s": 0.0, "device_s": 0.0, "write_s": 0.0}
+        split = {"decode_wait_s": 0.0, "write_s": 0.0}
+        batches = 0
+        tracer = TRACER if tracing() else None  # the profiler's state, read once a call
+        clocks = {}  # device -> DeviceClock, only while tracing
+        pass_span = None
+        if tracer:
+            clocks = {d: DeviceClock(d) for d in dict.fromkeys(self.devices) if d.type == "cuda"}
+            pass_span = tracer.begin("encode.pass", items=len(items), devices=n)
 
         def drain_one():
             t0 = clock()
-            chunk, results, _hosts = pending.popleft()
+            batch, chunk, results, _hosts, marks = pending.popleft()
+            span = tracer.begin("encode.readback", pass_span, t0, batch=batch) if tracer else None
             feats = torch.cat([r.float().cpu() for r in results])[: len(chunk)].numpy()
             t1 = clock()
+            if tracer:
+                tracer.end(span, t1)
+                span = tracer.begin("encode.write", pass_span, t1, batch=batch, rows=len(chunk))
             for (key, _px), vec in zip(chunk, feats):
                 on_result(key, vec)
-            split["device_s"] += t1 - t0
-            split["write_s"] += clock() - t1
+            t2 = clock()
+            split["write_s"] += (t2 - t1) / 1e9
+            if tracer:
+                tracer.end(span, t2)
+                # the read-back waited for every device past this batch's events
+                for device_clock, begin, end in marks:
+                    tracer.add("encode.device", device_clock.resolve(begin),
+                               device_clock.resolve(end), pass_span,
+                               thread=str(device_clock.device), batch=batch)
 
         def submit(chunk, shape):
+            nonlocal batches
+            batch, batches = batches, batches + 1
             t0 = clock()
+            span = (tracer.begin("encode.assemble", pass_span, t0, batch=batch, rows=len(chunk))
+                    if tracer else None)
             rows = -(-len(chunk) // n) * n  # zero rows pad the batch to shard evenly
             kwargs = {}
             if rounding:
@@ -424,17 +457,26 @@ class _Encoder:
                     kwargs = {"native_hw": native_hw, "scale": scale}
                 arrays = [_pad_rows(stack, rows)]
             hosts = [self._host(a) for a in arrays]
+            if tracer:
+                t1 = clock()
+                tracer.end(span, t1, bytes=sum(h.nbytes for h in hosts))
+                span = tracer.begin("encode.submit", pass_span, t1, batch=batch)
             per = rows // n
-            results = []
+            results, marks = [], []
             for i, (device, encode) in enumerate(zip(self.devices, programs)):
                 # this device's stream: its copies and launches queue behind
                 # nothing of the other devices'
                 with torch.cuda.device(device) if device.type == "cuda" else nullcontext():
+                    device_clock = clocks.get(device)
+                    begin = device_clock.mark() if device_clock else None
                     shard = [h[i * per: (i + 1) * per].to(device, non_blocking=True)
                              for h in hosts]
                     results.append(encode(*shard, **kwargs))
-            pending.append((chunk, results, hosts))
-            split["device_s"] += clock() - t0
+                    if device_clock:
+                        marks.append((device_clock, begin, device_clock.mark()))
+            pending.append((batch, chunk, results, hosts, marks))
+            if tracer:
+                tracer.end(span)
             while len(pending) > 2:
                 drain_one()  # read back older batches while this one runs
 
@@ -455,21 +497,29 @@ class _Encoder:
             # hold the whole dataset's decoded pixels when the device is slower
             window = max(2 * self.batch_size, 2 * self.decode_threads)
             inflight: deque = deque()
-            item_iter = iter(items)
+            item_iter = enumerate(items)
+            # decode threads cannot see the profiler: they record when handed a parent
+            parent = pass_span.id if tracer else None
 
             def refill():
                 while len(inflight) < window:
-                    item = next(item_iter, None)
+                    index, item = next(item_iter, (None, None))
                     if item is None:
                         return
-                    inflight.append((item, pool.submit(self._safe_decode, item[0], failed_path)))
+                    inflight.append((index, item, pool.submit(
+                        self._safe_decode, item[0], failed_path, parent, index)))
 
             refill()
             while inflight:
-                (_src, key), future = inflight.popleft()
+                index, (_src, key), future = inflight.popleft()
                 t0 = clock()
+                span = (tracer.begin("encode.decode_wait", pass_span, t0, item=index)
+                        if tracer else None)
                 pixels = future.result()
-                split["decode_wait_s"] += clock() - t0
+                t1 = clock()
+                split["decode_wait_s"] += (t1 - t0) / 1e9
+                if tracer:
+                    tracer.end(span, t1)
                 refill()  # keep the decode window full while we consume
                 if pixels is None:
                     continue
@@ -482,11 +532,16 @@ class _Encoder:
         while pending:
             drain_one()
         self.timings = {"decode_s": sum(self._decode_seconds), **split}
+        if tracer:
+            tracer.end(pass_span, batches=batches)
 
-    def _safe_decode(self, path: str, failed_path: str) -> Optional[np.ndarray]:
+    def _safe_decode(self, path: str, failed_path: str, parent: Optional[int] = None,
+                     item: int = 0) -> Optional[np.ndarray]:
         """Decode, or log the failure to ``failed_path`` and return None (the
-        reference's skip-and-log contract)."""
-        t0 = time.perf_counter()
+        reference's skip-and-log contract).  With ``parent`` (the caller is
+        tracing) the decode is recorded as an ``encode.decode`` span under
+        it, with the item's index and the file's bytes."""
+        t0 = time.perf_counter_ns()
         try:
             return decode_png(path)
         except Exception as exc:  # any unreadable file is skipped, not fatal
@@ -494,7 +549,11 @@ class _Encoder:
                 fh.write(path + "\n" + str(exc) + "\n\n")
             return None
         finally:
-            self._decode_seconds.append(time.perf_counter() - t0)  # list.append is atomic
+            t1 = time.perf_counter_ns()
+            self._decode_seconds.append((t1 - t0) / 1e9)  # list.append is atomic
+            if parent is not None:
+                size = os.path.getsize(path) if os.path.isfile(path) else 0
+                TRACER.add("encode.decode", t0, t1, parent, item=item, bytes=size)
 
 
 def _rows_with(dataset, column: str) -> List[Mapping]:

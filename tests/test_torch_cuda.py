@@ -31,7 +31,8 @@ converters writing the same bytes with the card as with ``--device cpu``;
 the ring all-gather across 2 and 4 processes sharing the card (gloo)
 bit-equal to ``torch.cat`` with one launch a call, its workspaces mapped and
 freed, a withheld hand-off and a rank that dies each raising within the
-deadline instead of hanging.
+deadline instead of hanging; the encoder's ``encode.device`` spans under a
+profiler, one per batch and replica, in submit order inside the pass.
 """
 
 import numpy as np
@@ -1057,3 +1058,45 @@ def test_step_timer_waits_for_the_card(cuda_device):
     done.record()
     elapsed = timer.stop({"step": [x * 2]})
     assert done.query() and elapsed >= 0.02 and timer.times == [elapsed]
+
+
+@pytest.mark.parametrize("devices", [("cuda:0",), ("cuda:0", "cuda:0")])
+def test_encoder_device_spans_follow_the_batches(cuda_device, tmp_path, devices):
+    """Under a profiler session ``_Encoder.encode_batches`` records one
+    ``encode.device`` span per batch and replica, inside its ``encode.pass``,
+    in submit order on the card's one stream (each starts where the one
+    before it has ended), their busy time at most the pass."""
+    import chip_smoke
+    from mmgclip_tpu_torch.ingest.encode import _Encoder
+    from mmgclip_tpu_torch.utils import profiling
+
+    items = []
+    for i, (h, w) in enumerate([(256, 208)] * 3 + [(250, 200)] * 2):
+        path = str(tmp_path / f"view_{i}.png")
+        chip_smoke.write_png16(path, chip_smoke.synthetic_mammogram(h, w, seed=i))
+        items.append((path, path))
+    cfg = chip_smoke.store_config(str(tmp_path), ("", "", ""), str(tmp_path / "store"))
+    encoder = _Encoder(cfg, batch_size=2, device=list(devices))
+    chip_smoke.set_layer_scale(encoder.module, 0.1)
+    failed = str(tmp_path / "failed.txt")
+    encoder.encode_batches(items, {}.__setitem__, failed)  # builds and warms the kernels
+    profiling.reset_spans()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=activities):
+            encoder.encode_batches(items, {}.__setitem__, failed)
+        records = profiling.spans()
+    finally:
+        profiling.reset_spans()
+    (root,) = [r for r in records if r["name"] == "encode.pass"]
+    spans = [r for r in records if r["name"] == "encode.device"]
+    batches = root["attrs"]["batches"]
+    assert batches == 3  # 2 + 2 rows of two shapes, then the one left
+    assert [r["attrs"]["batch"] for r in spans] == [b for b in range(batches)
+                                                    for _ in devices]
+    assert all(r["parent"] == root["id"] and r["thread"] == "cuda:0" for r in spans)
+    for before, after in zip(spans, spans[1:]):
+        assert before["start_ns"] <= before["end_ns"] <= after["start_ns"] <= after["end_ns"]
+    assert root["start_ns"] <= spans[0]["start_ns"] and spans[-1]["end_ns"] <= root["end_ns"]
+    busy = sum(r["end_ns"] - r["start_ns"] for r in spans)
+    assert 0 < busy <= root["end_ns"] - root["start_ns"]
