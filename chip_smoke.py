@@ -264,6 +264,36 @@ def write_png16(path: str, pixels: np.ndarray, paeth: bool = False) -> None:
     _write_png(path, w, h, 16, rows)
 
 
+def filter_rows(raw: np.ndarray, bpp: int, kinds) -> np.ndarray:
+    """[h, stride] uint8 scanlines -> [h, 1 + stride] filtered rows, row y
+    with filter ``kinds[y]`` (0-4), predicted from the unfiltered
+    neighbours as an encoder does."""
+    x = raw.astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b[1:] = x[:-1]
+    c[1:, bpp:] = x[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kinds = np.asarray(kinds, np.uint8)[:, None]
+    pred = np.select([kinds == 1, kinds == 2, kinds == 3, kinds == 4],
+                     [a, b, (a + b) >> 1, paeth], 0)
+    rows = np.empty((x.shape[0], 1 + x.shape[1]), np.uint8)
+    rows[:, :1] = kinds
+    rows[:, 1:] = ((x - pred) & 0xFF).astype(np.uint8)
+    return rows
+
+
+def host_unfilter(rows: np.ndarray, depth: int) -> np.ndarray:
+    """[h, 1 + stride] filtered rows -> the pixels the host decode gives:
+    ``png_reader.unfilter`` (``csrc/png_unfilter.c``) and its byte swap."""
+    from mmgclip_tpu_torch.ingest import png_reader
+
+    h, pitch = rows.shape
+    raw = png_reader.unfilter(rows.reshape(-1).copy(), h, pitch - 1, depth // 8)
+    return raw.view(">u2").astype(np.uint16) if depth == 16 else raw.copy()
+
+
 def write_png8(path: str, pixels: np.ndarray) -> None:
     """Grayscale 8-bit PNG, every row unfiltered."""
     h, w = pixels.shape
@@ -551,6 +581,46 @@ def dropout_inputs(shape, seed=0):
     return x, g
 
 
+def phase_png_unfilter(device, n=32, hw=(2294, 1914)):
+    """The PNG unfilter kernel (``csrc/png_unfilter.cu``) against the host
+    unfilter, bit for bit: ``n`` full-field 16-bit images with Paeth rows
+    (the feature store's files), then four with a filter drawn per row.
+    Then device ms per batch (``device_ms``) beside its bound (the rows read
+    and the pixels written once at 3.35 TB/s), the plain version's ms (host
+    clock, one call) and the host unfilter's ms per image.  -> the times."""
+    from mmgclip_tpu_torch.ops.png_unfilter import launch_png_unfilter, plain_png_unfilter
+
+    h, w = hw
+    raws = [synthetic_mammogram(h, w, seed=70 + i).astype(">u2").view(np.uint8) for i in range(n)]
+    rng = np.random.default_rng(7)
+    batches = {"Paeth": np.stack([filter_rows(r, 2, np.full(h, 4)) for r in raws]),
+               "mixed": np.stack([filter_rows(r, 2, rng.integers(0, 5, h)) for r in raws[:4]])}
+    for label, rows in batches.items():
+        got = launch_png_unfilter(torch.from_numpy(rows).to(device), 16).cpu().numpy()
+        for i, image in enumerate(rows):
+            want = host_unfilter(image, 16)
+            if not np.array_equal(got[i], want):
+                bad = np.argwhere(got[i] != want)[0]
+                raise AssertionError(f"png_unfilter ({label}) image {i} differs first at {bad}")
+        log(f"    {len(rows)} x {h}x{w} 16-bit, {label} rows: bit-equal to the host unfilter")
+    batch = torch.from_numpy(batches["Paeth"]).to(device)
+    times = {"kernel_ms": device_ms(lambda: launch_png_unfilter(batch, 16), calls=10)}
+    times["bound_ms"] = (batch.numel() + batch.shape[0] * h * w * 2) / 3.35e12 * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_png_unfilter(batch, 16)
+    torch.cuda.synchronize()
+    times["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    one = batch[0].cpu().numpy()
+    t0 = time.perf_counter()
+    host_unfilter(one, 16)
+    times["host_ms_per_image"] = (time.perf_counter() - t0) * 1e3
+    log(f"    {batch.shape[0]} x {h}x{w} Paeth: kernel {times['kernel_ms']:.4f} ms a batch "
+        f"(bound {times['bound_ms']:.4f} ms, bytes: {100 * times['bound_ms'] / times['kernel_ms']:.1f}%), "
+        f"plain {times['plain_ms']:.1f} ms, host unfilter {times['host_ms_per_image']:.1f} ms an image")
+    return times
+
+
 def phase_dropout_parity(device):
     """``mmg_dropout`` and ``mmg_threefry2x32`` against the plain version on
     the CPU (``utils/prng.py``): masks, outputs and gradients bit-equal at
@@ -773,7 +843,8 @@ def phase_feature_store(device, tmp):
     rows = create_dataset_df(cfg)
     if len(rows) != 5:
         raise AssertionError(f"create_dataset_df gave {len(rows)} rows, expected 5")
-    per_bucket = {"fused_stem": 1, "fused_ln_downsample": 3, "fused_convnext_block_int8": 18}
+    per_bucket = {"fused_stem": 1, "fused_ln_downsample": 3, "fused_convnext_block_int8": 18,
+                  **({"png_unfilter": 1} if device.type == "cuda" else {})}
     buckets = len(FFDM_SHAPES)
     feats, seconds, counts, ex = extract_store(
         cfg, rows, good, device, "feature store (exact shape, int8 + fused stem/downsample)",
@@ -1582,6 +1653,8 @@ def gate_store(device, tmp, tree, checkpoints, tag, knobs=None, expected=()):
     per_batch = {"fused_stem": 1, "fused_ln_downsample": len(ex.cn_config.dims) - 1}
     blocks = sum(ex.cn_config.depths)
     want = {k: batches * per_batch.get(k, blocks) for k in expected} if device.type == "cuda" else {}
+    if ex._unfilters_on_card():  # the gate's 8-bit gray files reach the card as filtered rows
+        want["png_unfilter"] = batches
     check_counts(f"gate store {tag} ({stored} images)", counts, want)
     return features
 
@@ -1676,6 +1749,9 @@ REPORT_TOWER = {"dtype": "bfloat16", "use_fused_blocks": True, "gelu": "tanh", "
 REPORT_IMAGE = "p0200000002cl"
 REPORT_EXAM = "0210000002"  # patient 02100000, study 02: four views
 PER_VIEW_LAUNCHES = {"fused_stem": 1, "fused_ln_downsample": 3, "fused_convnext_block_int8": 18}
+# a store's program call on the card: the tower's launches and the unfilter of
+# its 16-bit gray files' rows
+STORE_LAUNCHES = {**PER_VIEW_LAUNCHES, "png_unfilter": 1}
 SERVE_PROB_TOL = 1e-5         # a merged classify against the same request alone
 
 
@@ -2059,7 +2135,7 @@ def exam_encode(device, root, smi, shapes, tower, text_extra, n_studies):
         os.chdir(cwd)
     calls = 2 * -(-2 * n_studies // extractor.batch_size)  # two shapes, 2 * n_studies views each
     check_counts(f"encode_studies ({4 * n_studies} views in {calls} program calls of one shape each)",
-                 counts, {k: v * calls for k, v in (PER_VIEW_LAUNCHES if on_card else {}).items()})
+                 counts, {k: v * calls for k, v in (STORE_LAUNCHES if on_card else {}).items()})
     failed = open(os.path.join(store, "failed.txt")).read().split("\n")
     if failed[0] != corrupt:
         raise AssertionError(f"failed.txt reads {failed[:2]}, expected {corrupt}")
@@ -3573,7 +3649,7 @@ def phase_store_devices(device, tmp, smi, tree, rows, store_feats, store_seconds
     # (a) replicas in one process
     devices = [device] * STORE_SHARDS
     cfg = store_config(tmp, tree, os.path.join(tmp, "store22a"))
-    per_bucket = PER_VIEW_LAUNCHES if on_card else {}
+    per_bucket = STORE_LAUNCHES if on_card else {}
     feats, seconds, counts_a, ex = extract_store(
         cfg, rows, good, devices, f"(a) {STORE_SHARDS} replicas in one process on {device}",
         {k: v * len(FFDM_SHAPES) * STORE_SHARDS for k, v in per_bucket.items()})
@@ -3794,6 +3870,10 @@ def main() -> int:
     # 5b. the port-only threefry and dropout kernels ---------------------------
     log("[5b] threefry2x32 and dropout vs their plain versions (utils/prng.py, on the CPU)")
     dropout_err = phase_dropout_parity(device)
+
+    # 5c. the port-only PNG unfilter kernel ----------------------------------
+    log("[5c] png_unfilter vs the host unfilter (csrc/png_unfilter.c), then its times")
+    phase_png_unfilter(device)
 
     # 6. the serving path ---------------------------------------------------------
     log("[6] serving path: ConvNeXt-Tiny (fused blocks, bf16) + BERT-base (flash), seeded weights")

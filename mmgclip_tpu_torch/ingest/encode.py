@@ -13,12 +13,21 @@ surface (port of mmgclip_tpu/ingest/encode.py).
   tower).  The feature store and serving build their programs here, so
   served features ride the chain the stored ones were built with.
 * ``_Encoder`` decodes PNGs on a thread pool with a bounded in-flight
-  window, buckets them by shape and dtype (or by rounded shape with
+  window, buckets them by shape, dtype and form (or by rounded shape with
   ``encode_bucket_rounding``, through the masked tower), splits each batch
   over its devices (every local card by default: the JAX encoder's
   ``data`` mesh axis) and keeps two batches in flight: each shard is copied
   from pinned memory without blocking and read back only after the next
-  batch is queued.  Files that fail to decode are skipped and logged to
+  batch is queued.  Where the encode program takes the raw pixel batch
+  unchanged on the cards (the exact-shape and ``encode_resize`` paths, every
+  device a CUDA card), the decode threads stop after inflate for
+  non-interlaced 8- and 16-bit grayscale PNGs (``png_reader.read_png_rows``)
+  and each card undoes the row filters of its shard
+  (``ops/png_unfilter.py``) before the program; such files never share a
+  batch with host-decoded ones.  Every other file, and every file on the
+  ``encode_host_prepool`` and ``encode_bucket_rounding`` paths (which need
+  the pixels on the host) or with ``device="cpu"``, is decoded to pixels on
+  the host (``decode_png``).  Files that fail to decode are skipped and logged to
   ``failed.txt``, one append per entry, so several processes may share it.  Each run
   leaves host-clock seconds in ``_Encoder.timings``: ``decode_s`` summed over
   the decode threads, ``decode_wait_s`` the main thread waited for them and
@@ -29,7 +38,9 @@ surface (port of mmgclip_tpu/ingest/encode.py).
   ``encode.assemble`` (stack, pad, canvas or host prepool, pinning) and
   ``encode.submit`` (copies and launches) per batch, ``encode.readback`` and
   ``encode.write`` per drained batch; ``encode.decode`` per image on the
-  decode threads; ``encode.device`` per batch and card, from a CUDA event
+  decode threads, with where its rows are unfiltered (``unfilter``:
+  ``"card"`` or ``"host"``; None for a file that failed); ``encode.device``
+  per batch and card, from a CUDA event
   before the shard's first copy to one after its last launch.  Batch ids
   run 0, 1, ... within the call.
 * ``ImageFeatureExtractor`` writes one ``[1, 768, 1, 1]`` ``.npy`` per image
@@ -58,6 +69,7 @@ import torch
 from ..models.clip import resolve_dtype
 from ..models.convnext import ConvNeXt, ConvNeXtConfig, valid_mask
 from ..ops.fusion import fuse_views
+from ..ops.png_unfilter import png_unfilter
 from ..ops.preprocess import intensity_transform, normalize_16bit, to_16bit
 from ..ops.resize import (fit_shape, host_block_sum, resize_to_canvas,
                           resize_to_canvas_from_block_sums)
@@ -66,7 +78,7 @@ from ..utils.flax_msgpack import read_file
 from ..utils.logging import logger
 from ..utils.profiling import TRACER, DeviceClock, tracing
 from ..utils.seeding import create_directory_if_not_exists
-from .png_reader import decode_png
+from .png_reader import FilteredRows, decode_png, read_png_rows
 
 
 def resolve_device(device=None) -> torch.device:
@@ -297,7 +309,13 @@ class _Encoder:
     ``valid_hw`` of ones), row block i goes to the tower replica on device i,
     and the results come back in order, cut to the real rows.  Items are
     split per process first (``shard_items_for_host``).  A device may
-    repeat: its replicas share one module."""
+    repeat: its replicas share one module.
+
+    Which files reach the cards as filtered rows follows from the PNG
+    header and the path alone (``_unfilters_on_card``): non-interlaced 8-
+    and 16-bit grayscale files, on the exact-shape and ``encode_resize``
+    paths, when every device is a CUDA card.  Each card then unfilters its
+    own shard.  Everything else is decoded to pixels on the host."""
 
     def __init__(self, config, batch_size: int = 32, decode_threads: int = 8,
                  bucket_rounding: int = 0, device=None):
@@ -362,6 +380,13 @@ class _Encoder:
                 by_device[d] = copy.deepcopy(self.module).to(d)
         return [by_device[d] for d in self.devices]
 
+    def _unfilters_on_card(self) -> bool:
+        """Whether the cards undo the row filters: the program takes the raw
+        pixel batch unchanged (neither host block sums nor canvases) and
+        every device is a card."""
+        return (all(d.type == "cuda" for d in self.devices) and not self.prepool
+                and not self.bucket_rounding)
+
     def _host(self, array: np.ndarray) -> torch.Tensor:
         """A host batch as a tensor, pinned when a card takes it: each
         shard's copy then leaves without blocking and overlaps the previous
@@ -396,6 +421,7 @@ class _Encoder:
             build = self._encode_fn
         programs = [build(module) for module in self._replicas()]
         n = len(self.devices)
+        card_rows = self._unfilters_on_card()
         buckets: Dict[Tuple, List[Tuple[str, np.ndarray]]] = defaultdict(list)
         # (batch id, chunk, per-device results, host buffers, device event pairs)
         pending: deque = deque()
@@ -438,6 +464,7 @@ class _Encoder:
             span = (tracer.begin("encode.assemble", pass_span, t0, batch=batch, rows=len(chunk))
                     if tracer else None)
             rows = -(-len(chunk) // n) * n  # zero rows pad the batch to shard evenly
+            filtered = isinstance(chunk[0][1], FilteredRows)
             kwargs = {}
             if rounding:
                 canvas = np.zeros((rows, *shape[:2]), chunk[0][1].dtype)
@@ -447,7 +474,7 @@ class _Encoder:
                     valid_hw[i] = arr.shape[:2]
                 arrays = [canvas, valid_hw]
             else:
-                stack = np.stack([arr for _k, arr in chunk])
+                stack = np.stack([item.rows if filtered else item for _k, item in chunk])
                 if self.resize_hw and self.prepool:
                     # host half of the prepooled chain: the copies carry the
                     # block sums, 2-4 bytes per k^2 pixels
@@ -471,6 +498,8 @@ class _Encoder:
                     begin = device_clock.mark() if device_clock else None
                     shard = [h[i * per: (i + 1) * per].to(device, non_blocking=True)
                              for h in hosts]
+                    if filtered:  # this card undoes its shard's row filters
+                        shard[0] = png_unfilter(shard[0], chunk[0][1].depth)
                     results.append(encode(*shard, **kwargs))
                     if device_clock:
                         marks.append((device_clock, begin, device_clock.mark()))
@@ -485,12 +514,15 @@ class _Encoder:
             for start in range(0, len(bucket), self.batch_size):
                 submit(bucket[start: start + self.batch_size], shape)
 
-        def bucket_shape(pixels):
+        def bucket_shape(item):
             # dtype is part of the key: stacking mixed uint8/uint16 would
-            # promote to uint16 and mis-scale the intensity transform
+            # promote to uint16 and mis-scale the intensity transform; so is
+            # the form: filtered rows and host pixels never share a batch
+            if isinstance(item, FilteredRows):
+                return (*item.shape, f"rows{item.depth}")
             if not rounding:
-                return (*pixels.shape[:2], pixels.dtype.str)
-            return (*(-(-d // rounding) * rounding for d in pixels.shape[:2]), pixels.dtype.str)
+                return (*item.shape[:2], item.dtype.str)
+            return (*(-(-d // rounding) * rounding for d in item.shape[:2]), item.dtype.str)
 
         with ThreadPoolExecutor(max_workers=self.decode_threads) as pool:
             # bounded in-flight window: submitting every item at once would
@@ -507,7 +539,7 @@ class _Encoder:
                     if item is None:
                         return
                     inflight.append((index, item, pool.submit(
-                        self._safe_decode, item[0], failed_path, parent, index)))
+                        self._safe_decode, item[0], failed_path, parent, index, card_rows)))
 
             refill()
             while inflight:
@@ -515,16 +547,16 @@ class _Encoder:
                 t0 = clock()
                 span = (tracer.begin("encode.decode_wait", pass_span, t0, item=index)
                         if tracer else None)
-                pixels = future.result()
+                decoded = future.result()
                 t1 = clock()
                 split["decode_wait_s"] += (t1 - t0) / 1e9
                 if tracer:
                     tracer.end(span, t1)
                 refill()  # keep the decode window full while we consume
-                if pixels is None:
+                if decoded is None:
                     continue
-                shape = bucket_shape(pixels)
-                buckets[shape].append((key, pixels))
+                shape = bucket_shape(decoded)
+                buckets[shape].append((key, decoded))
                 if len(buckets[shape]) >= self.batch_size:
                     flush(shape)
         for shape in list(buckets):
@@ -536,14 +568,18 @@ class _Encoder:
             tracer.end(pass_span, batches=batches)
 
     def _safe_decode(self, path: str, failed_path: str, parent: Optional[int] = None,
-                     item: int = 0) -> Optional[np.ndarray]:
-        """Decode, or log the failure to ``failed_path`` and return None (the
-        reference's skip-and-log contract).  With ``parent`` (the caller is
-        tracing) the decode is recorded as an ``encode.decode`` span under
-        it, with the item's index and the file's bytes."""
+                     item: int = 0, card_rows: bool = False):
+        """Decode (with ``card_rows``, to ``FilteredRows`` where the header
+        allows: ``png_reader.read_png_rows``), or log the failure to
+        ``failed_path`` and return None (the reference's skip-and-log
+        contract).  With ``parent`` (the caller is tracing) the decode is
+        recorded as an ``encode.decode`` span under it, with the item's
+        index, the file's bytes and where its rows are unfiltered."""
         t0 = time.perf_counter_ns()
+        result = None
         try:
-            return decode_png(path)
+            result = read_png_rows(path) if card_rows else decode_png(path)
+            return result
         except Exception as exc:  # any unreadable file is skipped, not fatal
             with self._failed_lock, open(failed_path, "a") as fh:
                 fh.write(path + "\n" + str(exc) + "\n\n")
@@ -553,7 +589,10 @@ class _Encoder:
             self._decode_seconds.append((t1 - t0) / 1e9)  # list.append is atomic
             if parent is not None:
                 size = os.path.getsize(path) if os.path.isfile(path) else 0
-                TRACER.add("encode.decode", t0, t1, parent, item=item, bytes=size)
+                where = None if result is None else (
+                    "card" if isinstance(result, FilteredRows) else "host")
+                TRACER.add("encode.decode", t0, t1, parent, item=item, bytes=size,
+                           unfilter=where)
 
 
 def _rows_with(dataset, column: str) -> List[Mapping]:

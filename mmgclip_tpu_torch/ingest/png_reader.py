@@ -14,12 +14,24 @@ interlace method of the PNG standard:
 * alpha (from the colour type or a tRNS chunk) is dropped;
 * Adam7 interlacing is undone.
 
-Inflate is the standard library's ``zlib``.  The row filters are undone by a
-compiled C function (``csrc/png_unfilter.c``, built by ``cc`` into
-``mmgclip_tpu_torch/_build/`` at first use and called through ctypes, which
-releases the GIL, so decode threads run in parallel).  A missing compiler or
-a failed build raises.  ``_unfilter`` is the plain numpy / Python version the
-tests hold it against; no decode path uses it.
+Inflate is the standard library's ``zlib``.  ``decode_png`` undoes the row
+filters on the host by a compiled C function (``csrc/png_unfilter.c``, built
+by ``cc`` into ``mmgclip_tpu_torch/_build/`` at first use and called through
+ctypes, which releases the GIL, so decode threads run in parallel).  A
+missing compiler or a failed build raises.  ``_unfilter`` is the plain numpy
+/ Python version the tests hold it against; no decode path uses it.
+
+``read_png_rows`` stops after inflate for the files whose rows the card can
+unfilter (``ops/png_unfilter.py``): non-interlaced grayscale of 8 or 16
+bits, the full-field mammograms.  It returns their filtered scanlines
+(``FilteredRows``: a read-only ``[H, 1 + stride]`` view of zlib's output,
+with no copy and no byte swap) after the checks ``decode_png`` makes (CRCs,
+header, data length, and every row's filter byte), so a bad file raises the
+same ``ValueError`` on the decode thread.  Every other file (Adam7, palette,
+RGB, gray + alpha, 1-, 2- and 4-bit gray) it decodes with ``decode_png``.
+The feature store's encoder (``ingest/encode.py::_Encoder``) calls it where
+its batches go to the card unchanged; serving, reports and every host path
+call ``decode_png``.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import struct
 import zlib
+from typing import NamedTuple, Union
 
 import numpy as np
 
@@ -170,9 +183,22 @@ def _rgb_to_gray(rgb: np.ndarray, depth: int) -> np.ndarray:
     return (total >> 15).astype(np.uint8)
 
 
-def decode_png(path: str) -> np.ndarray:
-    """Decode a PNG to a grayscale [H, W] array (uint16 for 16-bit files,
-    uint8 otherwise), with the values of the JAX package's native reader."""
+class FilteredRows(NamedTuple):
+    """A grayscale image's filtered scanlines, as ``read_png_rows`` hands
+    them over: ``rows`` [H, 1 + W * depth // 8] uint8 (filter byte first),
+    ``depth`` 8 or 16 bits."""
+
+    rows: np.ndarray
+    depth: int
+
+    @property
+    def shape(self):
+        """The pixels' [H, W]."""
+        return self.rows.shape[0], (self.rows.shape[1] - 1) * 8 // self.depth
+
+
+def _read(path: str):
+    """-> (header fields, palette or None, the inflated image data as bytes)."""
     with open(path, "rb") as fh:
         data = fh.read()
     if not data.startswith(_SIGNATURE):
@@ -188,11 +214,40 @@ def decode_png(path: str) -> np.ndarray:
             idat.append(body)
     if header is None:
         raise ValueError(f"{path!r} has no IHDR chunk")
-    width, height, depth, color, _compression, _filter, interlace = header
+    _width, _height, depth, color, _compression, _filter, interlace = header
     if color not in _CHANNELS or depth not in _DEPTHS[color] or interlace not in (0, 1):
         raise ValueError(f"{path!r}: invalid PNG header (colour type {color}, bit depth "
                          f"{depth}, interlace {interlace})")
-    data = np.frombuffer(bytearray(zlib.decompress(b"".join(idat))), np.uint8)
+    return header, palette, zlib.decompress(b"".join(idat))
+
+
+def read_png_rows(path: str) -> Union[FilteredRows, np.ndarray]:
+    """A non-interlaced 8- or 16-bit grayscale PNG -> its ``FilteredRows``,
+    checked as ``decode_png`` checks them; any other PNG -> ``decode_png``'s
+    pixels (module docstring)."""
+    header, palette, data = _read(path)
+    width, height, depth, color, _compression, _filter, interlace = header
+    if color != 0 or depth not in (8, 16) or interlace != 0:
+        return _pixels(path, header, palette, data)
+    pitch = 1 + width * depth // 8
+    if len(data) < height * pitch:
+        raise ValueError("PNG image data is shorter than its header says")
+    rows = np.frombuffer(data, np.uint8, count=height * pitch).reshape(height, pitch)
+    bad = np.flatnonzero(rows[:, 0] > 4)
+    if bad.size:
+        raise ValueError(f"unknown PNG row filter {int(rows[bad[0], 0])}")
+    return FilteredRows(rows, depth)
+
+
+def decode_png(path: str) -> np.ndarray:
+    """Decode a PNG to a grayscale [H, W] array (uint16 for 16-bit files,
+    uint8 otherwise), with the values of the JAX package's native reader."""
+    return _pixels(path, *_read(path))
+
+
+def _pixels(path: str, header, palette, data: bytes) -> np.ndarray:
+    width, height, depth, color, _compression, _filter, interlace = header
+    data = np.frombuffer(bytearray(data), np.uint8)
     samples = _decode_samples(data, width, height, _CHANNELS[color], depth, interlace)
     if color == 3:
         if palette is None:

@@ -32,8 +32,16 @@ the ring all-gather across 2 and 4 processes sharing the card (gloo)
 bit-equal to ``torch.cat`` with one launch a call, its workspaces mapped and
 freed, a withheld hand-off and a rank that dies each raising within the
 deadline instead of hanging; the encoder's ``encode.device`` spans under a
-profiler, one per batch and replica, in submit order inside the pass.
+profiler, one per batch and replica, in submit order inside the pass; the
+PNG unfilter kernel bit-equal to the host unfilter (``csrc/png_unfilter.c``
+and the reader's byte swap) for every filter type, forced and mixed per row,
+at 8 and 16 bits, odd widths, one-pixel rows, saturated rows, zero pad
+images and a batch of 32 of the benchmark's full-field phantoms, and
+``extract()`` writing the same ``.npy`` bytes through it as through the host
+decode.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -67,6 +75,7 @@ from mmgclip_tpu_torch.ops.dropout import dropout, launch_dropout, launch_threef
 from mmgclip_tpu_torch.ops.dropout import fold_in as device_fold_in
 from mmgclip_tpu_torch.ops.dropout import split as device_split
 from mmgclip_tpu_torch.ops.fused_stem import fused_stem, launch_fused_stem, plain_stem
+from mmgclip_tpu_torch.ops.png_unfilter import launch_png_unfilter, png_unfilter
 from mmgclip_tpu_torch.parallel import (
     check_ring,
     global_clip_loss,
@@ -475,6 +484,7 @@ def _cpu_calls():
         "ring_all_gather": lambda: launch_ring_all_gather([torch.zeros(2, 3), torch.ones(2, 3)]),
         "threefry2x32": lambda: launch_threefry2x32(prng.key(0), 0, 2),
         "dropout": lambda: launch_dropout(x, prng.key(0), 1, 0.5),
+        "png_unfilter": lambda: launch_png_unfilter(torch.zeros(1, 2, 5, dtype=torch.uint8), 16),
     }
 
 
@@ -1100,3 +1110,105 @@ def test_encoder_device_spans_follow_the_batches(cuda_device, tmp_path, devices)
     assert root["start_ns"] <= spans[0]["start_ns"] and spans[-1]["end_ns"] <= root["end_ns"]
     busy = sum(r["end_ns"] - r["start_ns"] for r in spans)
     assert 0 < busy <= root["end_ns"] - root["start_ns"]
+
+
+# ----------------------------------------------------------------------
+# the PNG unfilter
+
+# (h, w): one band and one chunk; a band past 32 rows; chunks that end
+# mid-block and on a block; 600 rows, so warps take a second band
+UNFILTER_SHAPES = [(9, 7), (37, 29), (40, 33), (33, 34), (70, 64), (35, 65), (45, 131), (600, 75)]
+
+
+def unfilter_case(rng, h, w, bpp, kinds):
+    """Random raw rows (row 2 saturated, row 3 zero) filtered with ``kinds``."""
+    import chip_smoke
+
+    raw = rng.integers(0, 256, size=(h, w * bpp), dtype=np.uint8)
+    raw[2 % h] = 255
+    raw[3 % h] = 0
+    return chip_smoke.filter_rows(raw, bpp, kinds)
+
+
+def assert_unfilter_matches_host(rows: np.ndarray, depth: int, device):
+    import chip_smoke
+
+    before = launch_counts()["png_unfilter"]
+    got = png_unfilter(torch.from_numpy(rows).to(device), depth)
+    assert launch_counts()["png_unfilter"] == before + 1
+    assert got.dtype == (torch.uint16 if depth == 16 else torch.uint8)
+    got = got.cpu().numpy()
+    assert got.shape == (rows.shape[0], rows.shape[1], (rows.shape[2] - 1) // (depth // 8))
+    for i, image in enumerate(rows):
+        np.testing.assert_array_equal(got[i], chip_smoke.host_unfilter(image, depth), err_msg=str(i))
+
+
+@pytest.mark.parametrize("depth", [8, 16])
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4, "mixed"])
+def test_png_unfilter_kernel_matches_the_host(cuda_device, kind, depth):
+    rng = np.random.default_rng(depth + (9 if kind == "mixed" else kind))
+    for h, w in UNFILTER_SHAPES:
+        rows = np.stack([unfilter_case(rng, h, w, depth // 8, rng.integers(0, 5, h)
+                                       if kind == "mixed" else np.full(h, kind))
+                         for _ in range(3)])
+        assert_unfilter_matches_host(rows, depth, cuda_device)
+
+
+@pytest.mark.parametrize("depth", [8, 16])
+def test_png_unfilter_kernel_on_one_pixel_rows_and_pad_images(cuda_device, depth):
+    """Rows one pixel wide (no byte has a left neighbour), and a batch whose
+    last images are zero rows (the encoder's pad): zeros."""
+    rng = np.random.default_rng(depth)
+    rows = np.stack([unfilter_case(rng, 50, 1, depth // 8, rng.integers(0, 5, 50))
+                     for _ in range(2)])
+    assert_unfilter_matches_host(rows, depth, cuda_device)
+    rows = np.stack([unfilter_case(rng, 40, 66, depth // 8, rng.integers(0, 5, 40)),
+                     np.zeros((40, 1 + 66 * depth // 8), np.uint8),
+                     np.zeros((40, 1 + 66 * depth // 8), np.uint8)])
+    out = png_unfilter(torch.from_numpy(rows).to(cuda_device), depth).cpu().numpy()
+    assert not out[1:].any()
+    assert_unfilter_matches_host(rows, depth, cuda_device)
+
+
+def test_png_unfilter_kernel_on_a_batch_of_full_field_phantoms(cuda_device):
+    """32 of the store benchmark's 2294 x 1914 12-bit phantoms, every row
+    Paeth, as its PNG files hold them: bit-equal to the host."""
+    import chip_smoke
+    from portbench.data.phantom import phantom
+
+    rows = np.stack([chip_smoke.filter_rows(
+        phantom(2147484001, i, 2294, 1914).astype(">u2").view(np.uint8), 2, np.full(2294, 4))
+        for i in range(32)])
+    assert_unfilter_matches_host(rows, 16, cuda_device)
+
+
+def test_extract_writes_the_same_store_through_the_card_unfilter(cuda_device, tmp_path,
+                                                                 monkeypatch):
+    """``extract()`` over a few 16-bit phantoms (Paeth and unfiltered files,
+    two shapes): the card unfilters every batch, and each ``.npy`` file's
+    bytes equal those of the host decode's store."""
+    import chip_smoke
+    from mmgclip_tpu_torch.ingest.encode import ImageFeatureExtractor
+    from mmgclip_tpu_torch.ops import reset_launch_counts
+
+    rows = []
+    for i, (h, w) in enumerate([(256, 208)] * 3 + [(250, 200)] * 2):
+        path = str(tmp_path / "2D_100micron" / f"view_{i}.png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        chip_smoke.write_png16(path, chip_smoke.synthetic_mammogram(h, w, seed=i), paeth=i % 2 == 0)
+        rows.append({"image_path": path})
+    cfg = chip_smoke.store_config(str(tmp_path), ("", "", ""), str(tmp_path / "store"))
+    stores, counts = {}, {}
+    for route in ("card", "host"):
+        if route == "host":
+            monkeypatch.setattr(ImageFeatureExtractor, "_unfilters_on_card", lambda self: False)
+        ex = ImageFeatureExtractor(cfg, dataset=rows, batch_size=2, device=cuda_device)
+        chip_smoke.set_layer_scale(ex.module, 0.1)
+        ex.export_dir = str(tmp_path / f"store_{route}")
+        reset_launch_counts()
+        assert ex.extract() == len(rows)
+        counts[route] = launch_counts()["png_unfilter"]
+        stores[route] = {r["image_path"]: open(ex._export_path(r["image_path"]), "rb").read()
+                         for r in rows}
+    assert counts == {"card": 3, "host": 0}  # 2 + 1 of one shape, 2 of the other
+    assert stores["card"] == stores["host"]
