@@ -621,6 +621,90 @@ def phase_png_unfilter(device, n=32, hw=(2294, 1914)):
     return times
 
 
+def moe_layer_inputs(device, tokens=131072, d_model=2048, width=1408, experts=64, k=6,
+                     empty=(5, 40), seed=11):
+    """One MoE layer's chunk at the published widths (Moonlight-16B-A3B: 256
+    rows x 512 positions): bf16 activations and expert weights, skewed
+    routing with the experts ``empty`` given no token.  -> (x, plan,
+    weights, w_gate_up, w_down)."""
+    from mmgclip_tpu_torch.ops.moe_experts import dispatch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(tokens, d_model, generator=g, device=device).to(torch.bfloat16)
+    w_gate_up = (0.02 * torch.randn(experts, 2 * width, d_model, generator=g, device=device)
+                 ).to(torch.bfloat16)
+    w_down = (0.02 * torch.randn(experts, d_model, width, generator=g, device=device)
+              ).to(torch.bfloat16)
+    logits = torch.randn(tokens, experts, generator=g, device=device)
+    logits += torch.linspace(-1.5, 1.5, experts, device=device)  # uneven counts
+    logits[:, list(empty)] = float("-inf")
+    chosen = torch.topk(logits, k, dim=-1).indices
+    weights = torch.rand(tokens, k, generator=g, device=device) + 0.1
+    weights = weights / weights.sum(-1, keepdim=True) * 2.446
+    return x, dispatch(chosen, experts), weights, w_gate_up, w_down
+
+
+def phase_moe_experts(device, tokens=131072):
+    """The grouped expert kernel (``csrc/moe_experts.cu``) against its plain
+    version on one layer's chunk at the published widths, zero-token experts
+    included; then device ms a call beside its bound, a per-expert cuBLAS
+    loop (bf16, counts read on the host beforehand; CUDA events around one
+    call, host gaps included) and the plain version (host clock, one call).
+    -> the times."""
+    from mmgclip_tpu_torch.ops.moe_experts import launch_moe_experts, plain_moe_experts
+
+    x, plan, weights, w_gate_up, w_down = moe_layer_inputs(device, tokens)
+    E, two_i, D = w_gate_up.shape
+    I, k = two_i // 2, weights.shape[1]
+    got = launch_moe_experts(x, plan, weights, w_gate_up, w_down)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain_moe_experts(x, plan, weights, w_gate_up, w_down)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((got - want).abs().max() / want.abs().max())
+    rel_l2 = float((got - want).norm() / want.norm())
+    counts = plan.counts.tolist()
+    log(f"    {tokens} tokens x top-{k} of {E}: rows per expert {min(counts)}..{max(counts)} "
+        f"({sum(c == 0 for c in counts)} empty); max |diff| / max |plain| {err:.3e}, "
+        f"rel L2 {rel_l2:.3e}")
+    if not err <= BF16_REL_TOL:
+        raise AssertionError(f"moe_experts differs from its plain version by {err:.3e}")
+    again = launch_moe_experts(x, plan, weights, w_gate_up, w_down)
+    if not torch.equal(again, got):
+        raise AssertionError("moe_experts: a second launch on the same inputs differs")
+
+    offsets = plan.offsets.tolist()
+    flat_w = weights.reshape(-1)
+
+    def cublas_loop():
+        rows = torch.empty(tokens * k, D, dtype=x.dtype, device=device)
+        for e in range(E):
+            if offsets[e] == offsets[e + 1]:
+                continue
+            sel = plan.order[offsets[e]:offsets[e + 1]]
+            gate_up = x[sel // k] @ w_gate_up[e].T
+            h = torch.nn.functional.silu(gate_up[:, :I]) * gate_up[:, I:]
+            rows[sel] = ((h @ w_down[e].T).float() * flat_w[sel, None]).to(x.dtype)
+        return rows.view(tokens, k, D).sum(1, dtype=torch.float32)
+
+    rows = sum(counts)
+    ops = 2.0 * rows * D * 3 * I
+    active = sum(c > 0 for c in counts)
+    nbytes = (tokens * D * 2 + active * 3 * I * D * 2 + 2 * rows * I * 2 + rows * 8
+              + rows * D * 2)
+    times = {"kernel_ms": device_ms(lambda: launch_moe_experts(x, plan, weights, w_gate_up, w_down),
+                                    calls=5),
+             "cublas_loop_ms": time_ms(cublas_loop, warmup=1, iters=3),
+             "plain_ms": plain_ms,
+             "bound_ms": max(ops / 989e12, nbytes / 3.35e12) * 1e3}
+    log(f"    kernel {times['kernel_ms']:.3f} ms a call ({ops / times['kernel_ms'] / 1e9:.1f} "
+        f"TFLOP/s; bound {times['bound_ms']:.3f} ms: "
+        f"{100 * times['bound_ms'] / times['kernel_ms']:.1f}%), per-expert cuBLAS loop "
+        f"{times['cublas_loop_ms']:.3f} ms, plain {plain_ms:.1f} ms")
+    return times
+
+
 def phase_dropout_parity(device):
     """``mmg_dropout`` and ``mmg_threefry2x32`` against the plain version on
     the CPU (``utils/prng.py``): masks, outputs and gradients bit-equal at
@@ -3874,6 +3958,10 @@ def main() -> int:
     # 5c. the port-only PNG unfilter kernel ----------------------------------
     log("[5c] png_unfilter vs the host unfilter (csrc/png_unfilter.c), then its times")
     phase_png_unfilter(device)
+
+    # 5d. the port-only grouped expert kernel ----------------------------------
+    log("[5d] moe_experts vs its plain version at Moonlight-16B-A3B's widths, then its times")
+    phase_moe_experts(device)
 
     # 6. the serving path ---------------------------------------------------------
     log("[6] serving path: ConvNeXt-Tiny (fused blocks, bf16) + BERT-base (flash), seeded weights")

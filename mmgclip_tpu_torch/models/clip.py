@@ -3,8 +3,9 @@
 The dual-encoder CLIP head over frozen towers: stored 768-d ConvNeXt
 features are flattened (the ``ConvNextTiny`` feature path) or re-encoded by
 the ResNet-50 tower (``ResNet50Encoder``, the ablation path, whose
-``layer4`` trains), the frozen text tower (BERT, or the causal
-BioGPT-family ``CausalTextEncoder``) is EOS-pooled, each side goes through
+``layer4`` trains), the frozen text tower (BERT, the causal BioGPT-family
+``CausalTextEncoder``, or the DeepSeek-V3-family ``DeepseekV3TextEncoder``,
+built straight on the model's device) is EOS-pooled, each side goes through
 its projection head, then L2-normalization and the learnable logit scale.
 Parameters live on the module (``weights.load_clip_params`` loads the JAX
 trainable tree, ``weights.clip_params_tree`` writes it back).  The text
@@ -21,6 +22,7 @@ them, and adds the T2T branch for ``MMGCLIPLoss``.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Callable, Dict, Optional
 
@@ -33,6 +35,8 @@ from ..ops import dropout as dropout_op
 from ..utils.flax_msgpack import read_file
 from ..utils.logging import logger
 from .bert import BertConfig, BertEncoder, eos_pool, trim_padded_tail
+from .deepseek_v3 import (DeepseekV3Config, DeepseekV3TextEncoder, load_deepseek_v3_weights,
+                          read_snapshot)
 from .gpt import CausalTextEncoder, GPTConfig
 from .projections import get_projection_head
 from .resnet import ResNet50Encoder, ResNetConfig
@@ -59,12 +63,19 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 
 
 CAUSAL_TEXT_ENCODERS = ("CausalTextEncoder", "BioGptEncoder", "GPTEncoder")
+MOE_TEXT_ENCODERS = ("DeepseekV3TextEncoder",)
 
 
 def _text_tower_config_from(config: Config, vocab_size: Optional[int], config_cls):
     """Size keys, vocab fallback and dtype from ``networks.text_encoder.config``
-    (the same keys the JAX package reads) -> ``BertConfig`` / ``GPTConfig``."""
+    (the same keys the JAX package reads) -> ``BertConfig`` / ``GPTConfig``;
+    ``DeepseekV3Config`` reads every published key it has."""
     overrides = config.get_path("networks.text_encoder.config", {}) or {}
+    if config_cls is DeepseekV3Config:
+        tower = DeepseekV3Config.from_overrides(overrides)
+        if "dtype" in overrides:
+            tower = dataclasses.replace(tower, dtype=resolve_dtype(overrides["dtype"]))
+        return tower
     kwargs = {}
     for key in ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
                 "intermediate_size", "max_position_embeddings"):
@@ -78,9 +89,16 @@ def _text_tower_config_from(config: Config, vocab_size: Optional[int], config_cl
 
 
 class MMGCLIP(nn.Module):
-    """Text tower, projection heads and logit scale of the CLIP model."""
+    """Text tower, projection heads and logit scale of the CLIP model.
 
-    def __init__(self, config: Config, seed: int = 0, vocab_size: Optional[int] = None):
+    ``device``: where a ``DeepseekV3TextEncoder`` is built (the other towers
+    are built on the host and moved with the model); ``text_weights``: an HF
+    state dict for it, whose tensors it takes over (popped as they load), in
+    place of ``networks.text_encoder.weights_path`` (an HF snapshot
+    directory of ``*.safetensors`` for this tower)."""
+
+    def __init__(self, config: Config, seed: int = 0, vocab_size: Optional[int] = None,
+                 device=None, text_weights: Optional[Dict] = None):
         super().__init__()
         self.config = config
         self.seed = seed
@@ -97,16 +115,20 @@ class MMGCLIP(nn.Module):
             image_tower_dim = self.image_module.output_dimension  # width * 32
             logger.info("Using ResNet50Encoder image tower.")
 
-        # frozen text tower: BERT-family, or causal (BioGPT-family) by name
+        # frozen text tower: BERT-family, causal (BioGPT-family) or MoE by name
         text_encoder_name = str(config.get_path("networks.text_encoder.name", "BertEncoder"))
-        tower = ((GPTConfig, CausalTextEncoder) if text_encoder_name in CAUSAL_TEXT_ENCODERS
-                 else (BertConfig, BertEncoder))
-        self.bert_config = _text_tower_config_from(config, vocab_size, tower[0])
-        self.text_module = tower[1](self.bert_config, torch.Generator().manual_seed(seed))
+        weights_path = str(config.get_path("networks.text_encoder.weights_path", "") or "")
+        if text_encoder_name in MOE_TEXT_ENCODERS:
+            self.bert_config = _text_tower_config_from(config, vocab_size, DeepseekV3Config)
+            self.text_module = self._moe_tower(seed, device, text_weights, weights_path)
+        else:
+            tower = ((GPTConfig, CausalTextEncoder) if text_encoder_name in CAUSAL_TEXT_ENCODERS
+                     else (BertConfig, BertEncoder))
+            self.bert_config = _text_tower_config_from(config, vocab_size, tower[0])
+            self.text_module = tower[1](self.bert_config, torch.Generator().manual_seed(seed))
         # converted text-tower weights: flax bytes of {"params": ...}, the
         # JAX package's networks.text_encoder.weights_path contract
-        weights_path = str(config.get_path("networks.text_encoder.weights_path", "") or "")
-        if weights_path:
+        if weights_path and text_encoder_name not in MOE_TEXT_ENCODERS:
             if os.path.isfile(weights_path):
                 from ..weights import load_flax_tree
 
@@ -147,6 +169,24 @@ class MMGCLIP(nn.Module):
             params = self.trainable_parameters()
             for name, trainable in resnet_finetune_mask(params).items():
                 params[name].requires_grad_(trainable)
+
+    def _moe_tower(self, seed: int, device, text_weights: Optional[Dict],
+                   weights_path: str) -> DeepseekV3TextEncoder:
+        """The DeepSeek-V3 tower on ``device``: drawn there from the seed, or
+        built on ``meta`` and loaded from ``text_weights`` / the snapshot at
+        ``weights_path``, so its weights never pass through the host."""
+        device = torch.device("cpu" if device is None else device)
+        if text_weights is None and not weights_path:
+            return DeepseekV3TextEncoder(self.bert_config,
+                                         torch.Generator(device=device).manual_seed(seed),
+                                         device=device)
+        module = DeepseekV3TextEncoder(self.bert_config, device="meta")
+        if text_weights is not None:
+            load_deepseek_v3_weights(module, text_weights, device=device)
+        else:
+            read_snapshot(module, weights_path, device)
+            logger.info(f"Loaded the DeepSeek-V3 text tower from {weights_path}.")
+        return module
 
     def trainable_parameters(self) -> Dict[str, nn.Parameter]:
         """Dotted name -> parameter of the heads, ``logit_scale`` and the

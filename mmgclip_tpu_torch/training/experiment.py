@@ -7,6 +7,13 @@ Rebuild of the reference train/validate/test life cycle
 * the frozen text tower runs ONCE per dataset at init: EOS-pooled features
   of every row are cached into a device bank (pad-trimmed once for the whole
   bank, fed in padded chunks of 256), and train batches index the bank;
+  ``set_train_data`` banks a new dataset into the same trainer (a sweep over
+  new rows), copying the new banks into the fused epoch's in place so that
+  the captured step reads them.  Under a profiler session the bank encode
+  records ``bank.encode`` (rows, width), a ``bank.chunk`` span per chunk
+  (rows, valid_tokens, computed_tokens), its ``bank.device`` interval from
+  CUDA events (a tower may record its own spans inside, under the chunk's:
+  ``models/deepseek_v3.py``);
 * the fused epoch keeps the feature and text banks on the device and runs
   every step there: the shuffled order is the JAX package's
   (``_epoch_order``, numpy ``default_rng((seed, epoch))``, wrap-around tail),
@@ -71,7 +78,7 @@ from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, batch_rows, create
 from ..prompts.enums import BenignMalignantDatasetLabels, MassShapeLabels
 from ..utils import prng
 from ..utils.logging import logger
-from ..utils.profiling import maybe_trace
+from ..utils.profiling import TRACER, DeviceClock, maybe_trace, tracing
 from ..utils.seeding import create_directory_if_not_exists
 from ..utils.tb import ScalarWriter
 from .checkpoint import load_checkpoint
@@ -156,9 +163,11 @@ def mesh_layout(config, n_ranks: int):
 class ClassifierExperiment:
     def __init__(self, config=None, train_dataloader=None, valid_dataloader=None,
                  test_dataloader=None, tokenizer=None, device=None,
-                 init_params: Optional[Dict] = None):
+                 init_params: Optional[Dict] = None, text_weights: Optional[Dict] = None):
         """``init_params``: a JAX-layout trainable tree (nested numpy dicts) to
-        start from instead of the seeded init, e.g. the JAX package's."""
+        start from instead of the seeded init, e.g. the JAX package's.
+        ``text_weights``: HF-named weights of a ``DeepseekV3TextEncoder``
+        tower (``MMGCLIP``), taken over as they load."""
         if config is None:
             raise ValueError("Missing training config object.")
         self.config = config
@@ -176,7 +185,8 @@ class ClassifierExperiment:
         self.rng_key = prng.key(seed, device=self.device)
 
         vocab = tokenizer.vocab_size if tokenizer is not None else None
-        self.model = MMGCLIP(config, seed=seed, vocab_size=vocab)
+        self.model = MMGCLIP(config, seed=seed, vocab_size=vocab, device=self.device,
+                             text_weights=text_weights)
         if init_params is not None:
             from ..weights import load_clip_params
 
@@ -209,19 +219,7 @@ class ClassifierExperiment:
         # ---- frozen-tower text banks -------------------------------------
         self._text_bank = self._impression_bank = None
         if train_dataloader is not None:
-            base = _base_dataset(train_dataloader.dataset)
-            t0 = time.perf_counter()
-            self._text_bank = self._pool_tokens(base._tokens)
-            if self.loss_name == "MMGCLIPLoss":
-                if getattr(base, "_impression_tokens", None) is None:
-                    raise ValueError(
-                        "loss=MMGCLIPLoss needs a dataset with impression texts (its T2T term), "
-                        f"but {type(base).__name__} provides none — use the exam-reports "
-                        "dataset family or switch to loss=CLIPLoss/AveragedMedicalCLIPLoss")
-                self._impression_bank = self._pool_tokens(base._impression_tokens)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.timings["bank_s"] = time.perf_counter() - t0
+            self._bank_texts(train_dataloader)
 
         self._fused = bool(config.get_path("base.fused_epoch", True)) and train_dataloader is not None
         self._feats_bank = None  # built on the first fused epoch
@@ -293,16 +291,61 @@ class ClassifierExperiment:
             torch.distributed.barrier(group=group)
 
     # ------------------------------------------------------------------
+    def _bank_texts(self, train_dataloader) -> None:
+        """The text banks of ``train_dataloader``'s rows (and impressions)."""
+        base = _base_dataset(train_dataloader.dataset)
+        t0 = time.perf_counter()
+        self._text_bank = self._pool_tokens(base._tokens)
+        self._impression_bank = None
+        if self.loss_name == "MMGCLIPLoss":
+            if getattr(base, "_impression_tokens", None) is None:
+                raise ValueError(
+                    "loss=MMGCLIPLoss needs a dataset with impression texts (its T2T term), "
+                    f"but {type(base).__name__} provides none — use the exam-reports "
+                    "dataset family or switch to loss=CLIPLoss/AveragedMedicalCLIPLoss")
+            self._impression_bank = self._pool_tokens(base._impression_tokens)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timings["bank_s"] = time.perf_counter() - t0
+
+    def set_train_data(self, train_dataloader) -> None:
+        """Train on ``train_dataloader`` from now on: bank its texts through
+        the frozen tower and rebuild the fused epoch's banks.  Where the banks
+        keep their shapes, the new ones are copied into the old tensors, which
+        the captured step reads; else the captured step is dropped and the
+        next fused epoch captures it anew."""
+        self.train_dataloader = train_dataloader
+        self._bank_texts(train_dataloader)
+        self._fused = bool(self.config.get_path("base.fused_epoch", True))
+        if self._feats_bank is None:
+            return
+        old = (self._feats_bank, self._text_train_bank, self._text2_train_bank)
+        self._build_fused_epoch()
+        new = (self._feats_bank, self._text_train_bank, self._text2_train_bank)
+        same = all((a is None) == (b is None) and (a is None or a.shape == b.shape)
+                   for a, b in zip(old, new))
+        if same and self._graph is not None:
+            for a, b in zip(old, new):
+                if a is not None:
+                    a.copy_(b)
+            self._feats_bank, self._text_train_bank, self._text2_train_bank = old
+        else:
+            self._graph = self._graph_idx = None
+
     @torch.no_grad()
     def _pool_tokens(self, tokens: Dict[str, np.ndarray], chunk: int = 256) -> torch.Tensor:
         """Run the frozen text tower over all rows once; returns [N, hidden]
         on the device.  The padding tail is trimmed once for the whole bank
         and the last chunk is padded to the chunk size by repeating its last
-        row, as the JAX package does (one program shape for every chunk)."""
+        row, as the JAX package does (one program shape for every chunk).
+        Records the bank's spans under a profiler session (module docstring)."""
         tokens = trim_padded_tail(tokens, getattr(self.model, "text_pad_trim_multiple", 32))
-        n = tokens["input_ids"].shape[0]
+        n, width = tokens["input_ids"].shape[:2]
         outs = []
         tower = self._text_tower()
+        traced = tracing()
+        encode = TRACER.begin("bank.encode", rows=n, width=width) if traced else None
+        clock = DeviceClock(self.device) if traced and self.device.type == "cuda" else None
         for start in range(0, n, chunk):
             piece = {k: np.asarray(v[start: start + chunk]) for k, v in tokens.items()}
             valid = piece["input_ids"].shape[0]
@@ -321,8 +364,22 @@ class ClassifierExperiment:
                          for k in ("input_ids", "attention_mask"))
             types = piece.get("token_type_ids")
             types = None if types is None else torch.as_tensor(types, device=self.device)
+            if traced:
+                span = TRACER.begin("bank.chunk", parent=encode, rows=valid,
+                                    valid_tokens=int(piece["attention_mask"][:valid].sum()),
+                                    computed_tokens=int(ids.numel()))
+                marks = [clock.mark()] if clock is not None else None
             hidden = tower(ids, mask, types)
             outs.append(eos_pool(hidden, mask)[:valid])
+            if traced:
+                if marks is not None:
+                    marks.append(clock.mark())
+                    marks[-1].synchronize()
+                    TRACER.add("bank.device", clock.resolve(marks[0]), clock.resolve(marks[1]),
+                               parent=span, thread=str(self.device))
+                TRACER.end(span)
+        if traced:
+            TRACER.end(encode)
         bank = (torch.cat(outs) if outs
                 else torch.zeros((0, self.model.text_output_dimension), device=self.device))
         logger.info(f"Cached frozen text features for {n} rows.")

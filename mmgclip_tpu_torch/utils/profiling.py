@@ -31,7 +31,9 @@ span's id, and a few attributes (batch id, rows, bytes).  Records are dicts
   of the device's busy intervals would count as device work.  The tracer keeps one
   anchor pair ``(perf_counter_ns, time_ns)``, read when a root span begins,
   and ``to_profiler_clock`` moves any span, a worker's too, onto the
-  profiler's clock with it.
+  profiler's clock with it.  ``Tracer.current()`` is the innermost span
+  the calling thread has open: a callee (a tower inside a bank chunk)
+  records its spans under it without the caller handing it down.
 * ``DeviceClock`` gives device spans: CUDA event pairs on a device's current
   stream, resolved onto the host clock against an anchor event recorded and
   synchronized while the stream is idle.  Resolve a pair only after a
@@ -86,6 +88,7 @@ class Tracer:
         self._records: deque = deque(maxlen=capacity)  # append is atomic, drops the oldest
         self._ids = itertools.count(1)  # next() is atomic
         self.anchor: Optional[Tuple[int, int]] = None  # (perf_counter_ns, time_ns)
+        self._open = threading.local()  # .spans: this thread's open spans, innermost last
 
     def begin(self, name: str, parent=None, start_ns: Optional[int] = None, **attrs) -> Span:
         """Open a span on this thread (also entered as an ``mmg:`` profiler
@@ -96,15 +99,31 @@ class Tracer:
         mark = torch._C._profiler._RecordFunctionFast(PREFIX + name)
         mark.__enter__()
         start = time.perf_counter_ns() if start_ns is None else start_ns
-        return Span(next(self._ids), name, start, _id(parent), attrs, mark)
+        span = Span(next(self._ids), name, start, _id(parent), attrs, mark)
+        self._stack().append(span)
+        return span
 
     def end(self, span: Span, end_ns: Optional[int] = None, **attrs) -> None:
         """Close ``span`` (``end_ns``: a reading the caller already took) and
         record it, with ``attrs`` added to its attributes."""
         end = time.perf_counter_ns() if end_ns is None else end_ns
         span._mark.__exit__(None, None, None)
+        stack = self._stack()
+        if span in stack:
+            stack.remove(span)
         self._append(span.id, span.name, span.start_ns, end, threading.current_thread().name,
                      span.parent, {**span.attrs, **attrs})
+
+    def current(self) -> Optional[Span]:
+        """The innermost span this thread has open (``begin`` without
+        ``end``), or None."""
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    def _stack(self) -> List[Span]:
+        if not hasattr(self._open, "spans"):
+            self._open.spans = []
+        return self._open.spans
 
     def add(self, name: str, start_ns: int, end_ns: int, parent=None, thread: Optional[str] = None,
             **attrs) -> int:

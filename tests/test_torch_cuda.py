@@ -75,6 +75,7 @@ from mmgclip_tpu_torch.ops.dropout import dropout, launch_dropout, launch_threef
 from mmgclip_tpu_torch.ops.dropout import fold_in as device_fold_in
 from mmgclip_tpu_torch.ops.dropout import split as device_split
 from mmgclip_tpu_torch.ops.fused_stem import fused_stem, launch_fused_stem, plain_stem
+from mmgclip_tpu_torch.ops.moe_experts import dispatch, launch_moe_experts, plain_moe_experts
 from mmgclip_tpu_torch.ops.png_unfilter import launch_png_unfilter, png_unfilter
 from mmgclip_tpu_torch.parallel import (
     check_ring,
@@ -485,6 +486,10 @@ def _cpu_calls():
         "threefry2x32": lambda: launch_threefry2x32(prng.key(0), 0, 2),
         "dropout": lambda: launch_dropout(x, prng.key(0), 1, 0.5),
         "png_unfilter": lambda: launch_png_unfilter(torch.zeros(1, 2, 5, dtype=torch.uint8), 16),
+        "moe_experts": lambda: launch_moe_experts(
+            torch.zeros(4, 16, dtype=torch.bfloat16), dispatch(torch.zeros(4, 2, dtype=torch.long), 2),
+            torch.ones(4, 2), torch.zeros(2, 16, 16, dtype=torch.bfloat16),
+            torch.zeros(2, 16, 8, dtype=torch.bfloat16)),
     }
 
 
@@ -1212,3 +1217,131 @@ def test_extract_writes_the_same_store_through_the_card_unfilter(cuda_device, tm
                          for r in rows}
     assert counts == {"card": 3, "host": 0}  # 2 + 1 of one shape, 2 of the other
     assert stores["card"] == stores["host"]
+
+
+# ----------------------------------------------------------------------
+# the grouped expert kernel (csrc/moe_experts.cu)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("tokens,d_model,width,experts,k", [
+    (131072, 2048, 1408, 64, 6),  # one chunk of Moonlight-16B-A3B's bank encode
+    (333, 72, 40, 8, 2),          # ragged tiles, K past one 64-wide step, N past one tile
+])
+def test_moe_experts_kernel_matches_plain(cuda_device, tokens, d_model, width, experts, k):
+    """Uneven counts with two experts given no token; the kernel's weighted
+    sum against its plain version within two bf16 steps of the largest
+    value (the SwiGLU and each weighted row are rounded to bf16 on both
+    sides, after float32 sums taken in another order), and a second launch
+    bit-equal to the first."""
+    import chip_smoke
+
+    x, plan, weights, w_gate_up, w_down = chip_smoke.moe_layer_inputs(
+        cuda_device, tokens, d_model, width, experts, k, empty=(1, experts - 2))
+    assert plan.counts[1] == 0 and plan.counts[experts - 2] == 0
+    before = launch_counts()["moe_experts"]
+    got = launch_moe_experts(x, plan, weights, w_gate_up, w_down)
+    assert launch_counts()["moe_experts"] == before + 1
+    want = plain_moe_experts(x, plan, weights, w_gate_up, w_down)
+    assert float((got - want).abs().max() / want.abs().max()) <= BF16_REL_TOL
+    assert torch.equal(launch_moe_experts(x, plan, weights, w_gate_up, w_down), got)
+
+
+def _moe_trainer(device, tmp_path):
+    """The tiny DeepSeek-V3 tower's trainer on the card, and a loader of 48
+    fresh rows by seed (its first sweep: seed 0)."""
+    from mmgclip_tpu_torch.cli import DEFAULT_CONFIG_DIR
+    from mmgclip_tpu_torch.config import compose
+    from mmgclip_tpu_torch.data.loader import DataLoader
+    from mmgclip_tpu_torch.training.experiment import ClassifierExperiment
+    from torch_deepseek_v3 import tiny_override
+
+    class Rows:
+        def __init__(self, seed):
+            rng = np.random.default_rng(seed)
+            lengths = rng.integers(1, 30, 48)
+            mask = (np.arange(64)[None] < lengths[:, None]).astype(np.int32)
+            self._tokens = {"input_ids": rng.integers(0, 256, (48, 64)).astype(np.int32) * mask,
+                            "attention_mask": mask}
+            self._features = rng.normal(size=(48, 768)).astype(np.float32)
+
+        def __len__(self):
+            return 48
+
+    cfg = compose(DEFAULT_CONFIG_DIR, "train_binary_class_clf",
+                  ["networks=clip_convnext_moonlight_text", "projection=2xLinear512",
+                   tiny_override(), "dataloader.train.batch_size=8",
+                   "base.seed=3"], run_dir=str(tmp_path))
+    cfg.base.tensorboard_export_dir = str(tmp_path / "tb")
+
+    def loader(seed):
+        return DataLoader(Rows(seed), batch_size=8, drop_last=True)
+
+    return ClassifierExperiment(config=cfg, train_dataloader=loader(0), device=device), loader
+
+
+def _moe_sweeps(device, tmp_path, graphed: bool, sweeps: int = 3):
+    """``_moe_trainer``'s ``sweeps`` sweeps of fresh rows through
+    ``set_train_data``: -> (each sweep's epoch loss, the heads' parameters
+    after the last)."""
+    exp, loader = _moe_trainer(device, tmp_path)
+    exp.use_cuda_graph = graphed
+    losses = [exp.train()]
+    for sweep in range(1, sweeps):
+        exp.set_train_data(loader(sweep))
+        exp.current_epoch += 1
+        losses.append(exp.train())
+    assert (exp._graph is not None) == graphed
+    return losses, {k: v.detach().cpu() for k, v in exp.params.items()}
+
+
+def test_graphed_sweeps_read_each_new_bank(cuda_device, tmp_path):
+    """Sweeps of new rows through ``set_train_data`` on a DeepSeek-V3 tower
+    (the grouped expert kernel in every bank): the captured step reads each
+    sweep's bank, copied into the tensors it was captured on, so graphed
+    sweeps end where eager ones do (losses and heads within 1e-6 relative;
+    dropout on)."""
+    before = launch_counts()["moe_experts"]
+    graphed, g_params = _moe_sweeps(cuda_device, tmp_path / "g", True)
+    assert launch_counts()["moe_experts"] - before == 3 * 2  # sweeps x MoE layers, one chunk each
+    eager, e_params = _moe_sweeps(cuda_device, tmp_path / "e", False)
+    np.testing.assert_allclose(graphed, eager, rtol=1e-6)
+    assert len(set(graphed)) == 3
+    for name in g_params:
+        torch.testing.assert_close(g_params[name], e_params[name], rtol=1e-6, atol=1e-7)
+
+
+def test_the_tower_records_its_moe_spans_under_each_bank_chunk(cuda_device, tmp_path):
+    """Under a profiler session the DeepSeek-V3 tower records, inside each
+    ``bank.chunk`` of ``_pool_tokens``, one ``moe.route`` and one
+    ``moe.experts`` interval per MoE layer (routing before experts, both
+    inside the chunk's ``bank.device``) and one ``moe.tokens_per_expert``
+    counter whose counts add up to the chunk's computed tokens times top-k."""
+    from mmgclip_tpu_torch.utils import profiling
+    from torch_deepseek_v3 import TINY
+
+    exp, loader = _moe_trainer(cuda_device, tmp_path)
+    tokens = {k: np.concatenate([v] * 6) for k, v in loader(1).dataset._tokens.items()}  # 288 rows
+    profiling.reset_spans()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            exp._pool_tokens(tokens)
+        records = profiling.spans()
+    finally:
+        profiling.reset_spans()
+    chunks = [r for r in records if r["name"] == "bank.chunk"]
+    assert [c["attrs"]["rows"] for c in chunks] == [256, 32]
+    moe_layers = TINY.num_hidden_layers - TINY.first_k_dense_replace
+    for chunk in chunks:
+        (device,) = [r for r in records if r["name"] == "bank.device" and r["parent"] == chunk["id"]]
+        inside = [r for r in records if r["parent"] == chunk["id"] and r["name"].startswith("moe.")]
+        route = [r for r in inside if r["name"] == "moe.route"]
+        experts = [r for r in inside if r["name"] == "moe.experts"]
+        (counts,) = [r["attrs"]["counts"] for r in inside if r["name"] == "moe.tokens_per_expert"]
+        assert [r["attrs"]["layer"] for r in route] == [r["attrs"]["layer"] for r in experts] \
+            == list(range(moe_layers))
+        for r, e in zip(route, experts):
+            assert device["start_ns"] <= r["start_ns"] <= r["end_ns"] == e["start_ns"] \
+                <= e["end_ns"] <= device["end_ns"]
+        assert np.asarray(counts).shape == (moe_layers, TINY.n_routed_experts)
+        assert np.asarray(counts).sum(axis=1).tolist() == \
+            [chunk["attrs"]["computed_tokens"] * TINY.num_experts_per_tok] * moe_layers

@@ -82,6 +82,21 @@ def test_records_carry_their_parents_and_nest():
         assert records[name]["start_ns"] <= records[name]["end_ns"] <= records["outer"]["end_ns"]
 
 
+def test_current_is_the_innermost_span_open_on_this_thread():
+    tracer = Tracer()
+    with torch.profiler.profile(activities=CPU):
+        assert tracer.current() is None
+        root = tracer.begin("outer")
+        child = tracer.begin("inner", root)
+        assert tracer.current() is child
+        with ThreadPoolExecutor(1) as pool:
+            assert pool.submit(tracer.current).result() is None
+        tracer.end(child)
+        assert tracer.current() is root
+        tracer.end(root)
+        assert tracer.current() is None
+
+
 def test_a_span_sits_on_the_profiler_clock():
     tracer = Tracer()
     with torch.profiler.profile(activities=CPU) as prof:
