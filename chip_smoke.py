@@ -106,6 +106,7 @@ from __future__ import annotations
 import base64
 import dataclasses
 import json
+import math
 import os
 import shutil
 import struct
@@ -135,6 +136,9 @@ PEAKS = {
 }
 FP32_REL_TOL = 1e-4           # kernel 1 vs plain, fp32 with TF32 off
 BF16_REL_TOL = 2.0 ** -6      # both kernels in bf16: two bf16 steps of the largest value
+MLA_ROW_L2_TOL = 1e-2         # latent attention vs plain, each row's relative L2: the plain
+                              # path's own bf16 rounding (P, the context) reads 2.6e-3 at the
+                              # bank cell's shape, dropping a row's last valid key 8.5e-2
 FLASH_FP32_ABS_TOL = 1e-5     # kernel 2 vs attention_reference, fp32
 TOWER_FP32_ABS_TOL = 1e-4     # BERT-base hidden states, flash vs plain attention, 12 layers
 FEATURE_COSINE_MIN = 0.9999   # fused vs unfused ConvNeXt-Tiny features, bf16
@@ -702,6 +706,127 @@ def phase_moe_experts(device, tokens=131072):
         f"TFLOP/s; bound {times['bound_ms']:.3f} ms: "
         f"{100 * times['bound_ms'] / times['kernel_ms']:.1f}%), per-expert cuBLAS loop "
         f"{times['cublas_loop_ms']:.3f} ms, plain {plain_ms:.1f} ms")
+    return times
+
+
+BANK_LENGTHS = {"median": 180, "sigma": 0.6, "min": 24, "max": 512}  # train.moonlight_bank's rows
+
+
+def bank_lengths(rows: int, seed: int) -> np.ndarray:
+    """Valid lengths as the bank cell draws its rows: log-normal around
+    ``BANK_LENGTHS``' median with its sigma, rounded and clipped to [min, max]."""
+    spec = BANK_LENGTHS
+    raw = np.exp(np.random.default_rng(seed).normal(math.log(spec["median"]), spec["sigma"], rows))
+    return np.clip(np.rint(raw), spec["min"], spec["max"]).astype(np.int64)
+
+
+def mla_layer_inputs(device, masks, heads=16, nope=128, rope=64, vd=128, latent=512, seed=13):
+    """One latent-attention layer's inputs as the tower's projections give
+    them: q ``[b, s, H (nope + rope)]``, k_pe a view of the ``[b, s, latent +
+    rope]`` kv_a output at its row stride, kv ``[b, s, H (nope + vd)]``, all
+    bf16 N(0, 1); the rope tables of ``rope_tables`` (theta 50,000); ``masks``
+    ``[b, s]`` int32 -> (q, k_pe, kv, cos, sin, keys [b, s] int32 on the card)."""
+    from mmgclip_tpu_torch.models.deepseek_v3 import rope_tables
+
+    keys = torch.as_tensor(np.asarray(masks, np.int32), device=device)
+    b, s = keys.shape
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=device).to(torch.bfloat16)
+
+    q = draw(b, s, heads * (nope + rope))
+    k_pe = draw(b, s, latent + rope)[..., latent:]
+    kv = draw(b, s, heads * (nope + vd))
+    cos, sin = rope_tables(s, rope, 50000.0, device)
+    return q, k_pe, kv, cos, sin, keys
+
+
+def mla_bound(lengths, heads=16, nope=128, rope=64, vd=128,
+              peaks=PEAKS["H100 80GB HBM3"]) -> float:
+    """The least seconds of one launch over rows of these valid lengths, by
+    ``attn.mla_roofline``'s formula: the larger of 2 H L (L + 1) / 2 (nope +
+    rope + v) operations a row at the bf16 peak and, a valid token, its q,
+    k_nope, v, shared k_pe and context in bf16 at the HBM peak."""
+    ops = sum(2.0 * heads * (n * (n + 1) // 2) * (nope + rope + vd) for n in map(int, lengths))
+    nbytes = 2.0 * sum(map(int, lengths)) * (heads * (2 * nope + rope + 2 * vd) + rope)
+    return max(ops / peaks["bf16"], nbytes / peaks["bytes"])
+
+
+def mla_errors(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """-> (max |diff| / max |plain|, relative L2 of the worst row) of a
+    context ``[b, s, H v]`` against its plain version."""
+    diff = got.float() - want.float()
+    rows = diff.flatten(1).norm(dim=1) / want.float().flatten(1).norm(dim=1)
+    return float(diff.abs().max() / want.float().abs().max()), float(rows.max())
+
+
+def phase_mla_attention(device, rows=256, width=512, seed=2147483659):
+    """The causal latent-attention kernel (``csrc/mla_attention.cu``) against
+    its plain version on one layer of one bank chunk at the cell's shape
+    (Moonlight-16B-A3B's widths, lengths drawn as the bank cell draws them):
+    every output element, pad positions included, within two bf16 steps of
+    the largest and each row within ``MLA_ROW_L2_TOL`` relative L2, a second
+    launch bit-equal; then device ms a call beside the
+    bound of ``attn.mla_roofline``'s formula, the plain version's and one
+    ``scaled_dot_product_attention`` call over the same masked, rotated
+    operands (the yardstick only: the port never calls it), and the memory
+    each allocates beyond its inputs.  -> the times."""
+    from mmgclip_tpu_torch.models.deepseek_v3 import attention_masks
+    from mmgclip_tpu_torch.ops.mla_attention import (launch_mla_attention, plain_mla_attention,
+                                                     rope_pairs)
+
+    lengths = bank_lengths(rows, seed)
+    masks = (np.arange(width)[None, :] < lengths[:, None]).astype(np.int32)
+    q, k_pe, kv, cos, sin, keys = mla_layer_inputs(device, masks, seed=seed % 1000)
+    H = 16
+    kernel = lambda: launch_mla_attention(q, k_pe, kv, cos, sin, keys, H)  # noqa: E731
+    plain = lambda: plain_mla_attention(q, k_pe, kv, cos, sin, keys, H)  # noqa: E731
+
+    def peak_mb(fn) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    got = kernel()
+    want = plain()
+    err, row_l2 = mla_errors(got, want)
+    rel_l2 = float((got.float() - want.float()).norm() / want.float().norm())
+    log(f"    {rows} rows x {width}, lengths {int(lengths.min())}..{int(lengths.max())} (median "
+        f"{int(np.median(lengths))}): max |diff| / max |plain| {err:.3e}, rel L2 {rel_l2:.3e}, "
+        f"worst row's {row_l2:.3e}")
+    if not (err <= BF16_REL_TOL and row_l2 <= MLA_ROW_L2_TOL):
+        raise AssertionError(f"mla_attention differs from its plain version: max {err:.3e} "
+                             f"(limit {BF16_REL_TOL:.3e}), worst row's relative L2 {row_l2:.3e} "
+                             f"(limit {MLA_ROW_L2_TOL:.0e})")
+    if not torch.equal(kernel(), got):
+        raise AssertionError("mla_attention: a second launch on the same inputs differs")
+    del got, want
+
+    b, s = keys.shape
+    qh = q.view(b, s, H, -1)
+    query = torch.cat([qh[..., :128], rope_pairs(qh[..., 128:], cos, sin)], -1).transpose(1, 2)
+    k_rot = rope_pairs(k_pe[:, :, None], cos, sin).expand(b, s, H, 64)
+    kvh = kv.view(b, s, H, -1)
+    key = torch.cat([kvh[..., :128], k_rot], -1).transpose(1, 2).contiguous()
+    value = kvh[..., 128:].transpose(1, 2).contiguous()
+    query = query.contiguous()
+    mask = attention_masks(keys)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        query, key, value, attn_mask=mask)
+    times = {"kernel_ms": device_ms(kernel, calls=10), "plain_ms": device_ms(plain, calls=2,
+                                                                              repeats=3),
+             "sdpa_ms": device_ms(sdpa, calls=5), "bound_ms": mla_bound(lengths) * 1e3,
+             "kernel_peak_mb": peak_mb(kernel), "plain_peak_mb": peak_mb(plain)}
+    log(f"    kernel {times['kernel_ms']:.4f} ms a layer-chunk (bound {times['bound_ms']:.4f} ms: "
+        f"{100 * times['bound_ms'] / times['kernel_ms']:.1f}%), plain {times['plain_ms']:.3f} ms, "
+        f"SDPA {times['sdpa_ms']:.4f} ms; "
+        f"allocated beyond the inputs: kernel {times['kernel_peak_mb']:.0f} MiB, plain "
+        f"{times['plain_peak_mb']:.0f} MiB")
     return times
 
 
@@ -3962,6 +4087,10 @@ def main() -> int:
     # 5d. the port-only grouped expert kernel ----------------------------------
     log("[5d] moe_experts vs its plain version at Moonlight-16B-A3B's widths, then its times")
     phase_moe_experts(device)
+
+    # 5e. the port-only causal latent-attention kernel --------------------------
+    log("[5e] mla_attention vs its plain version at a Moonlight-16B-A3B bank chunk, then its times")
+    phase_mla_attention(device)
 
     # 6. the serving path ---------------------------------------------------------
     log("[6] serving path: ConvNeXt-Tiny (fused blocks, bf16) + BERT-base (flash), seeded weights")

@@ -26,9 +26,13 @@ Departures: no ``lm_head`` and no multi-token-prediction layers (a text
 tower uses neither).  Precision: bfloat16 weights and activations with
 float32 accumulation; RMSNorm statistics, RoPE, the scores and the router in
 float32.  The routed experts go through ``ops/moe_experts.py`` (the grouped
-CUDA kernel on the card, its plain version on the CPU); attention and every
-other product are plain ``torch`` (cuBLAS), as in ``models/gpt.py``: the
-port's flash kernel has no causal mask.
+CUDA kernel on the card, its plain version on the CPU); the attention after
+its projections (RoPE, scores under the causal and padding masks, softmax,
+P v) through ``ops/mla_attention.py`` (on the card a causal latent-attention
+kernel that reads the projections in place and rotates ``q_pe`` and the
+shared ``k_pe`` as it loads them, with no float32 copy; on the CPU its plain
+version); the projections and every other product are plain ``torch``
+(cuBLAS).
 
 Parameters use HuggingFace's ``[out, in]`` layout under HF-like names, the
 routed experts stacked: ``w_gate_up`` ``[E, 2 I, D]`` (each expert's gate
@@ -59,7 +63,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.flash_attention import NEG_INF
+from ..ops.mla_attention import mla_attention
 from ..ops.moe_experts import dispatch, moe_experts
 from ..utils.profiling import TRACER, DeviceClock, tracing
 
@@ -165,15 +169,6 @@ def rope_tables(positions: int, dim: int, theta: float, device) -> tuple:
     return angles.cos(), angles.sin()
 
 
-def rope_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate adjacent pairs (2i, 2i + 1) of ``x`` ``[b, s, heads, dim]`` by
-    the tables of ``rope_tables`` (``[s, dim // 2]``), in float32."""
-    xf = x.float().unflatten(-1, (-1, 2))
-    c, s = cos[None, :, None], sin[None, :, None]
-    a, b = xf[..., 0], xf[..., 1]
-    return torch.stack((a * c - b * s, a * s + b * c), dim=-1).flatten(-2).to(x.dtype)
-
-
 def _param(shape, dtype, device, generator, std: Optional[float], fill: float = 0.0):
     """A frozen parameter: normal(0, std) from ``generator`` or ``fill``
     (``std`` None); nothing drawn on ``meta``."""
@@ -228,24 +223,13 @@ class Attention(nn.Module):
         self.o_proj = build.weight(D, H * c.v_head_dim)
 
     def forward(self, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+                keys: torch.Tensor) -> torch.Tensor:
         c = self.c
-        b, s, _ = h.shape
-        H, nope, rope, vd = c.num_attention_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim
-        q = F.linear(h, self.q_proj).view(b, s, H, nope + rope)
-        c_kv, k_pe = F.linear(h, self.kv_a_proj_with_mqa).split([c.kv_lora_rank, rope], dim=-1)
-        kv = F.linear(self.kv_a_layernorm(c_kv), self.kv_b_proj).view(b, s, H, nope + vd)
-        k_nope, v = kv.split([nope, vd], dim=-1)
-        q_pe = rope_pairs(q[..., nope:], cos, sin)
-        k_pe = rope_pairs(k_pe[:, :, None], cos, sin).expand(b, s, H, rope)
-        query = torch.cat([q[..., :nope], q_pe], dim=-1).transpose(1, 2).float()
-        key = torch.cat([k_nope, k_pe], dim=-1).transpose(1, 2).float()
-        scores = torch.matmul(query, key.transpose(-1, -2)) * (1.0 / math.sqrt(nope + rope))
-        del query, key
-        scores.masked_fill_(~mask, NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        del scores
-        ctx = torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2).reshape(b, s, H * vd)
+        q = F.linear(h, self.q_proj)
+        c_kv, k_pe = F.linear(h, self.kv_a_proj_with_mqa).split(
+            [c.kv_lora_rank, c.qk_rope_head_dim], dim=-1)
+        kv = F.linear(self.kv_a_layernorm(c_kv), self.kv_b_proj)
+        ctx = mla_attention(q, k_pe, kv, cos, sin, keys, c.num_attention_heads)
         return F.linear(ctx, self.o_proj)
 
 
@@ -336,14 +320,15 @@ class DecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, build)
         self.mlp = MoE(c, build) if c.is_moe(index) else MLP(c.intermediate_size, c, build)
 
-    def forward(self, x: torch.Tensor, cos, sin, mask, trace=None) -> torch.Tensor:
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask)
+    def forward(self, x: torch.Tensor, cos, sin, keys, trace=None) -> torch.Tensor:
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, keys)
         h = self.post_attention_layernorm(x)
         return x + (self.mlp(h, trace) if isinstance(self.mlp, MoE) else self.mlp(h))
 
 
 def attention_masks(attention_mask: torch.Tensor) -> torch.Tensor:
-    """``[b, s]`` -> ``[b, 1, s, s]``: causal, and only the valid keys."""
+    """``[b, s]`` -> ``[b, 1, s, s]``: causal, and only the valid keys (the
+    plain attention's mask; the kernel applies the same rule itself)."""
     s = attention_mask.shape[1]
     causal = torch.tril(torch.ones(s, s, dtype=torch.bool, device=attention_mask.device))
     return causal[None, None] & (attention_mask[:, None, None, :] > 0)
@@ -378,10 +363,9 @@ class DeepseekV3TextEncoder(nn.Module):
             attention_mask = torch.ones(b, s, dtype=torch.int32, device=device)
         x = self.embed_tokens[input_ids.long()]
         cos, sin = rope_tables(s, c.qk_rope_head_dim, c.rope_theta, device)
-        mask = attention_masks(attention_mask)
         trace = _MoeTrace(device) if device.type == "cuda" and tracing() else None
         for layer in self.layers:
-            x = layer(x, cos, sin, mask, trace)
+            x = layer(x, cos, sin, attention_mask, trace)
         out = self.norm(x, torch.float32)
         if trace is not None:
             trace.flush()

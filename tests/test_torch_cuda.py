@@ -38,7 +38,10 @@ and the reader's byte swap) for every filter type, forced and mixed per row,
 at 8 and 16 bits, odd widths, one-pixel rows, saturated rows, zero pad
 images and a batch of 32 of the benchmark's full-field phantoms, and
 ``extract()`` writing the same ``.npy`` bytes through it as through the host
-decode.
+decode; the causal latent-attention kernel against its plain version within
+two bf16 steps of the largest output (both round P to bf16, at different
+points, after float32 sums taken in another order), its rotated operands
+bit-equal to ``rope_pairs``, a second launch bit-equal.
 """
 
 import os
@@ -47,6 +50,7 @@ import numpy as np
 import pytest
 import torch
 
+from mmgclip_tpu_torch.models.deepseek_v3 import rope_tables
 from mmgclip_tpu_torch.ops import launch_counts
 from mmgclip_tpu_torch.ops.depthwise_conv import (
     depthwise_conv7x7,
@@ -75,6 +79,12 @@ from mmgclip_tpu_torch.ops.dropout import dropout, launch_dropout, launch_threef
 from mmgclip_tpu_torch.ops.dropout import fold_in as device_fold_in
 from mmgclip_tpu_torch.ops.dropout import split as device_split
 from mmgclip_tpu_torch.ops.fused_stem import fused_stem, launch_fused_stem, plain_stem
+from mmgclip_tpu_torch.ops.mla_attention import (
+    launch_mla_attention,
+    mla_attention,
+    plain_mla_attention,
+    rope_pairs,
+)
 from mmgclip_tpu_torch.ops.moe_experts import dispatch, launch_moe_experts, plain_moe_experts
 from mmgclip_tpu_torch.ops.png_unfilter import launch_png_unfilter, png_unfilter
 from mmgclip_tpu_torch.parallel import (
@@ -486,6 +496,10 @@ def _cpu_calls():
         "threefry2x32": lambda: launch_threefry2x32(prng.key(0), 0, 2),
         "dropout": lambda: launch_dropout(x, prng.key(0), 1, 0.5),
         "png_unfilter": lambda: launch_png_unfilter(torch.zeros(1, 2, 5, dtype=torch.uint8), 16),
+        "mla_attention": lambda: launch_mla_attention(
+            torch.zeros(1, 4, 4 * 24, dtype=torch.bfloat16), torch.zeros(1, 4, 8, dtype=torch.bfloat16),
+            torch.zeros(1, 4, 4 * 32, dtype=torch.bfloat16), *rope_tables(4, 8, 50000.0, "cpu"),
+            torch.ones(1, 4, dtype=torch.bool), 4),
         "moe_experts": lambda: launch_moe_experts(
             torch.zeros(4, 16, dtype=torch.bfloat16), dispatch(torch.zeros(4, 2, dtype=torch.long), 2),
             torch.ones(4, 2), torch.zeros(2, 16, 16, dtype=torch.bfloat16),
@@ -1345,3 +1359,103 @@ def test_the_tower_records_its_moe_spans_under_each_bank_chunk(cuda_device, tmp_
         assert np.asarray(counts).shape == (moe_layers, TINY.n_routed_experts)
         assert np.asarray(counts).sum(axis=1).tolist() == \
             [chunk["attrs"]["computed_tokens"] * TINY.num_experts_per_tok] * moe_layers
+
+
+# ----------------------------------------------------------------------
+# the causal latent-attention kernel (csrc/mla_attention.cu)
+# ----------------------------------------------------------------------
+def _awkward_masks(s: int) -> np.ndarray:
+    """Rows of length 1, without a valid key, with holes, left-padded, and whole."""
+    pos = np.arange(s)
+    hole = (pos < 2 * s // 3) & (pos != s // 4) & (pos != s // 2)
+    return np.stack([pos < 1, np.zeros(s, bool), hole, pos >= s // 3, pos < s]).astype(np.int32)
+
+
+MLA_DIMS = {"moonlight": dict(heads=16, nope=128, rope=64, vd=128, latent=512),
+            "tiny": dict(heads=4, nope=16, rope=8, vd=16, latent=16)}
+
+
+@pytest.mark.parametrize("rows,width,dims", [
+    (256, 512, "moonlight"),  # a chunk of the bank cell, lengths drawn as it draws them
+    (5, 33, "moonlight"),     # a query tile past s, a key tile of one key
+    (5, 200, "moonlight"),
+    (5, 40, "tiny"),          # the tests' tiny tower
+])
+def test_mla_attention_kernel_matches_plain(cuda_device, rows, width, dims):
+    """Every output element, pad positions and queries without an allowed key
+    included, within two bf16 steps of the largest, and each row's relative
+    L2 within ``MLA_ROW_L2_TOL`` (the max alone would pass a wrong kernel: a
+    position-0 query returns v_0, so the largest value is tens of times a
+    typical one); one launch a call; a second launch bit-equal."""
+    import chip_smoke
+
+    if rows == 256:
+        lengths = chip_smoke.bank_lengths(rows, 7)
+        masks = (np.arange(width)[None, :] < lengths[:, None]).astype(np.int32)
+    else:
+        masks = _awkward_masks(width)
+    d = MLA_DIMS[dims]
+    q, k_pe, kv, cos, sin, keys = chip_smoke.mla_layer_inputs(cuda_device, masks, **d)
+    before = launch_counts()["mla_attention"]
+    got = mla_attention(q, k_pe, kv, cos, sin, keys, d["heads"])
+    assert launch_counts()["mla_attention"] == before + 1
+    want = plain_mla_attention(q, k_pe, kv, cos, sin, keys, d["heads"])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err, row_l2 = chip_smoke.mla_errors(got, want)
+    assert err <= BF16_REL_TOL and row_l2 <= chip_smoke.MLA_ROW_L2_TOL, (err, row_l2)
+    assert torch.equal(launch_mla_attention(q, k_pe, kv, cos, sin, keys.bool(), d["heads"]), got)
+
+
+@pytest.mark.parametrize("dims", sorted(MLA_DIMS))
+def test_mla_attention_rotates_as_rope_pairs(cuda_device, dims):
+    """The operands the kernel rotates on load (its debug outputs) bit-equal
+    to ``rope_pairs`` on the card, and the context unchanged by asking."""
+    import chip_smoke
+
+    d = MLA_DIMS[dims]
+    q, k_pe, kv, cos, sin, keys = chip_smoke.mla_layer_inputs(
+        cuda_device, np.ones((3, 100), np.int32), **d)
+    b, s, _ = q.shape
+    out, q_rot, k_rot = launch_mla_attention(q, k_pe, kv, cos, sin, keys, d["heads"], rotated=True)
+    assert torch.equal(q_rot, rope_pairs(q.view(b, s, d["heads"], -1)[..., d["nope"]:], cos, sin))
+    assert torch.equal(k_rot, rope_pairs(k_pe[:, :, None], cos, sin)[:, :, 0])
+    assert torch.equal(out, launch_mla_attention(q, k_pe, kv, cos, sin, keys, d["heads"]))
+
+
+def test_mla_attention_refuses_what_the_kernel_does_not_take(cuda_device):
+    import chip_smoke
+
+    q, k_pe, kv, cos, sin, keys = chip_smoke.mla_layer_inputs(
+        cuda_device, np.ones((2, 40), np.int32))
+    b, s, w = q.shape
+    shifted = torch.empty(b, s, w + 1, dtype=q.dtype, device=q.device)[..., 1:]  # 2-byte offset
+    shifted.copy_(q)
+    strided = torch.empty(b, s, w, 2, dtype=q.dtype, device=q.device)[..., 0]
+    strided.copy_(q)
+    for args in [(q.float(), k_pe, kv), (q, k_pe.half(), kv), (shifted, k_pe, kv),
+                 (strided, k_pe, kv), (q, k_pe, kv[..., :-16 * 8])]:
+        with pytest.raises(ValueError):
+            launch_mla_attention(*args, cos, sin, keys, 16)
+    with pytest.raises(ValueError):
+        launch_mla_attention(q, k_pe, kv, cos.double(), sin, keys, 16)
+
+
+def test_the_bank_runs_its_attention_through_the_kernel(cuda_device, tmp_path, monkeypatch):
+    """``_pool_tokens`` launches the kernel once a layer and chunk (27 a
+    chunk of the Moonlight bank; the tiny tower has 3 layers), and its bank
+    matches the bank of the plain attention on the card as the bf16 tower
+    matches the reference on the CPU (relative L2 a row: median under
+    1.5e-2, nine rows in ten under 3e-2; a token at a near routing tie may
+    flip)."""
+    from mmgclip_tpu_torch.models import deepseek_v3
+    from torch_deepseek_v3 import TINY
+
+    exp, loader = _moe_trainer(cuda_device, tmp_path)
+    tokens = {k: np.concatenate([v] * 6) for k, v in loader(1).dataset._tokens.items()}  # 288 rows
+    before = launch_counts()["mla_attention"]
+    bank = exp._pool_tokens(tokens)
+    assert launch_counts()["mla_attention"] - before == TINY.num_hidden_layers * 2
+    monkeypatch.setattr(deepseek_v3, "mla_attention", plain_mla_attention)
+    plain = exp._pool_tokens(tokens)
+    errors = (bank - plain).norm(dim=1) / plain.norm(dim=1)
+    assert float(errors.median()) < 1.5e-2 and float((errors > 3e-2).float().mean()) <= 0.1

@@ -1,5 +1,7 @@
-"""The DeepSeek-V3 text tower (``models/deepseek_v3.py``), its routed
-experts' plain path (``ops/moe_experts.py``) and the trainer's bank over it,
+"""The DeepSeek-V3 text tower (``models/deepseek_v3.py``), the plain paths of
+its routed experts (``ops/moe_experts.py``) and of its attention
+(``ops/mla_attention.py``, bit-equal to the arithmetic the layer ran
+inline), and the trainer's bank over it,
 held against the plain reference ``tests/reference_deepseek_v3.py`` at a
 tiny size on the CPU (hidden 64, 1 dense + 2 MoE layers, 8 experts, top-2,
 1 shared expert, latent 16, rope 8).  Weights are drawn at 1 / sqrt(fan in)
@@ -9,6 +11,7 @@ products) within 1.5e-2 relative by the median token and 3e-2 for nine
 tokens in ten (a token whose selection sits at a near tie may flip)."""
 
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -21,13 +24,16 @@ from mmgclip_tpu_torch.models.deepseek_v3 import (
     DeepseekV3TextEncoder,
     MoE,
     _Params,
+    attention_masks,
     hf_names,
     load_deepseek_v3_weights,
     parameter_count,
     read_snapshot,
-    rope_pairs,
     rope_tables,
 )
+from mmgclip_tpu_torch.ops import launch_counts
+from mmgclip_tpu_torch.ops.flash_attention import NEG_INF
+from mmgclip_tpu_torch.ops.mla_attention import mla_attention, plain_mla_attention, rope_pairs
 from mmgclip_tpu_torch.ops.moe_experts import dispatch, plain_moe_experts
 from torch_deepseek_v3 import TINY, hf_state_dict
 
@@ -160,6 +166,61 @@ def test_rope_pairs_match_deinterleaved_rotate_half(seq):
     angle = pos.double() * theta ** (-2.0 / d)
     torch.testing.assert_close(turned[:, 2].double(), angle.cos(), rtol=0, atol=1e-6)
     torch.testing.assert_close(turned[:, 3].double(), angle.sin(), rtol=0, atol=1e-6)
+
+
+def _inline_attention(q, k_pe, kv, cos, sin, mask, H, nope, rope, vd):
+    """The tower's attention as ``Attention.forward`` wrote it inline before
+    it moved to ``ops/mla_attention.py`` (``rope_pairs`` written out too)."""
+    def rope_then(x):
+        xf = x.float().unflatten(-1, (-1, 2))
+        c, s = cos[None, :, None], sin[None, :, None]
+        a, b = xf[..., 0], xf[..., 1]
+        return torch.stack((a * c - b * s, a * s + b * c), dim=-1).flatten(-2).to(x.dtype)
+
+    b, s, _ = q.shape
+    q = q.view(b, s, H, nope + rope)
+    kv = kv.view(b, s, H, nope + vd)
+    k_nope, v = kv.split([nope, vd], dim=-1)
+    q_pe = rope_then(q[..., nope:])
+    k_pe = rope_then(k_pe[:, :, None]).expand(b, s, H, rope)
+    query = torch.cat([q[..., :nope], q_pe], dim=-1).transpose(1, 2).float()
+    key = torch.cat([k_nope, k_pe], dim=-1).transpose(1, 2).float()
+    scores = torch.matmul(query, key.transpose(-1, -2)) * (1.0 / math.sqrt(nope + rope))
+    scores.masked_fill_(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v.transpose(1, 2)).transpose(1, 2).reshape(b, s, H * vd)
+
+
+MASKS = {  # [rows, 12] key masks
+    "prefix": [[1] * n + [0] * (12 - n) for n in (12, 7, 3, 1)],
+    "hole": [[1, 1, 0, 1, 1, 1, 0, 0, 1, 1, 0, 0], [1] * 12],
+    "left_padded": [[0] * 5 + [1] * 7, [1] * 9 + [0] * 3],
+    "all_zero": [[0] * 12, [1] * 4 + [0] * 8],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masks", sorted(MASKS))
+def test_plain_mla_attention_is_the_inline_arithmetic(masks, dtype):
+    """``plain_mla_attention`` bit-equal to the arithmetic the layer ran
+    inline, under prefix masks, a mask with holes, a left-padded row and a
+    row without a valid key; ``mla_attention`` takes it for CPU tensors and
+    launches nothing."""
+    c = TINY
+    H, nope, rope, vd = c.num_attention_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim
+    keys = torch.tensor(MASKS[masks], dtype=torch.int32)
+    b, s = keys.shape
+    g = torch.Generator().manual_seed(len(masks))
+    q = torch.randn(b, s, H * (nope + rope), generator=g).to(dtype)
+    k_pe = torch.randn(b, s, c.kv_lora_rank + rope, generator=g).to(dtype)[..., c.kv_lora_rank:]
+    kv = torch.randn(b, s, H * (nope + vd), generator=g).to(dtype)
+    cos, sin = rope_tables(s, rope, c.rope_theta, "cpu")
+    want = _inline_attention(q, k_pe, kv, cos, sin, attention_masks(keys), H, nope, rope, vd)
+    assert torch.equal(plain_mla_attention(q, k_pe, kv, cos, sin, keys, H), want)
+    before = launch_counts()["mla_attention"]
+    assert torch.equal(mla_attention(q, k_pe, kv, cos, sin, keys, H), want)
+    assert launch_counts()["mla_attention"] == before
+    assert torch.isfinite(want).all()
 
 
 @pytest.mark.parametrize("tokens,k,experts,dtype", [(50, 2, 8, torch.bfloat16),
