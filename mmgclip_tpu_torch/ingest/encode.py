@@ -76,7 +76,7 @@ from ..ops.resize import (fit_shape, host_block_sum, resize_to_canvas,
 from ..parallel.mesh import local_devices
 from ..utils.flax_msgpack import read_file
 from ..utils.logging import logger
-from ..utils.profiling import TRACER, DeviceClock, tracing
+from ..utils.profiling import INERT, recorder
 from ..utils.seeding import create_directory_if_not_exists
 from .png_reader import FilteredRows, decode_png, read_png_rows
 
@@ -423,46 +423,35 @@ class _Encoder:
         n = len(self.devices)
         card_rows = self._unfilters_on_card()
         buckets: Dict[Tuple, List[Tuple[str, np.ndarray]]] = defaultdict(list)
-        # (batch id, chunk, per-device results, host buffers, device event pairs)
+        # (batch id, chunk, per-device results, host buffers, per-device mark pairs)
         pending: deque = deque()
         clock = time.perf_counter_ns
         self._decode_seconds = []
         split = {"decode_wait_s": 0.0, "write_s": 0.0}
         batches = 0
-        tracer = TRACER if tracing() else None  # the profiler's state, read once a call
-        clocks = {}  # device -> DeviceClock, only while tracing
-        pass_span = None
-        if tracer:
-            clocks = {d: DeviceClock(d) for d in dict.fromkeys(self.devices) if d.type == "cuda"}
-            pass_span = tracer.begin("encode.pass", items=len(items), devices=n)
+        tracer = recorder()  # the profiler's state, read once a call
+        pass_span = tracer.begin("encode.pass", items=len(items), devices=n)
 
         def drain_one():
-            t0 = clock()
             batch, chunk, results, _hosts, marks = pending.popleft()
-            span = tracer.begin("encode.readback", pass_span, t0, batch=batch) if tracer else None
+            span = tracer.begin("encode.readback", pass_span, batch=batch)
             feats = torch.cat([r.float().cpu() for r in results])[: len(chunk)].numpy()
             t1 = clock()
-            if tracer:
-                tracer.end(span, t1)
-                span = tracer.begin("encode.write", pass_span, t1, batch=batch, rows=len(chunk))
+            tracer.end(span, t1)
+            span = tracer.begin("encode.write", pass_span, t1, batch=batch, rows=len(chunk))
             for (key, _px), vec in zip(chunk, feats):
                 on_result(key, vec)
             t2 = clock()
             split["write_s"] += (t2 - t1) / 1e9
-            if tracer:
-                tracer.end(span, t2)
-                # the read-back waited for every device past this batch's events
-                for device_clock, begin, end in marks:
-                    tracer.add("encode.device", device_clock.resolve(begin),
-                               device_clock.resolve(end), pass_span,
-                               thread=str(device_clock.device), batch=batch)
+            tracer.end(span, t2)
+            # the read-back waited for every device past this batch's marks
+            for begin, end in marks:
+                tracer.interval("encode.device", begin, end, pass_span, batch=batch)
 
         def submit(chunk, shape):
             nonlocal batches
             batch, batches = batches, batches + 1
-            t0 = clock()
-            span = (tracer.begin("encode.assemble", pass_span, t0, batch=batch, rows=len(chunk))
-                    if tracer else None)
+            span = tracer.begin("encode.assemble", pass_span, batch=batch, rows=len(chunk))
             rows = -(-len(chunk) // n) * n  # zero rows pad the batch to shard evenly
             filtered = isinstance(chunk[0][1], FilteredRows)
             kwargs = {}
@@ -484,28 +473,23 @@ class _Encoder:
                     kwargs = {"native_hw": native_hw, "scale": scale}
                 arrays = [_pad_rows(stack, rows)]
             hosts = [self._host(a) for a in arrays]
-            if tracer:
-                t1 = clock()
-                tracer.end(span, t1, bytes=sum(h.nbytes for h in hosts))
-                span = tracer.begin("encode.submit", pass_span, t1, batch=batch)
+            t1 = tracer.end(span, bytes=lambda: sum(h.nbytes for h in hosts))
+            span = tracer.begin("encode.submit", pass_span, t1, batch=batch)
             per = rows // n
             results, marks = [], []
             for i, (device, encode) in enumerate(zip(self.devices, programs)):
                 # this device's stream: its copies and launches queue behind
                 # nothing of the other devices'
                 with torch.cuda.device(device) if device.type == "cuda" else nullcontext():
-                    device_clock = clocks.get(device)
-                    begin = device_clock.mark() if device_clock else None
+                    begin = tracer.mark(device)
                     shard = [h[i * per: (i + 1) * per].to(device, non_blocking=True)
                              for h in hosts]
                     if filtered:  # this card undoes its shard's row filters
                         shard[0] = png_unfilter(shard[0], chunk[0][1].depth)
                     results.append(encode(*shard, **kwargs))
-                    if device_clock:
-                        marks.append((device_clock, begin, device_clock.mark()))
+                    marks.append((begin, tracer.mark(device)))
             pending.append((batch, chunk, results, hosts, marks))
-            if tracer:
-                tracer.end(span)
+            tracer.end(span)
             while len(pending) > 2:
                 drain_one()  # read back older batches while this one runs
 
@@ -530,28 +514,26 @@ class _Encoder:
             window = max(2 * self.batch_size, 2 * self.decode_threads)
             inflight: deque = deque()
             item_iter = enumerate(items)
-            # decode threads cannot see the profiler: they record when handed a parent
-            parent = pass_span.id if tracer else None
 
             def refill():
                 while len(inflight) < window:
                     index, item = next(item_iter, (None, None))
                     if item is None:
                         return
+                    # decode threads cannot see the profiler: they take this call's tracer
                     inflight.append((index, item, pool.submit(
-                        self._safe_decode, item[0], failed_path, parent, index, card_rows)))
+                        self._safe_decode, item[0], failed_path, tracer, pass_span, index,
+                        card_rows)))
 
             refill()
             while inflight:
                 index, (_src, key), future = inflight.popleft()
                 t0 = clock()
-                span = (tracer.begin("encode.decode_wait", pass_span, t0, item=index)
-                        if tracer else None)
+                span = tracer.begin("encode.decode_wait", pass_span, t0, item=index)
                 decoded = future.result()
                 t1 = clock()
                 split["decode_wait_s"] += (t1 - t0) / 1e9
-                if tracer:
-                    tracer.end(span, t1)
+                tracer.end(span, t1)
                 refill()  # keep the decode window full while we consume
                 if decoded is None:
                     continue
@@ -564,17 +546,14 @@ class _Encoder:
         while pending:
             drain_one()
         self.timings = {"decode_s": sum(self._decode_seconds), **split}
-        if tracer:
-            tracer.end(pass_span, batches=batches)
+        tracer.end(pass_span, batches=batches)
 
-    def _safe_decode(self, path: str, failed_path: str, parent: Optional[int] = None,
+    def _safe_decode(self, path: str, failed_path: str, tracer=INERT, parent=None,
                      item: int = 0, card_rows: bool = False):
         """Decode (with ``card_rows``, to ``FilteredRows`` where the header
         allows: ``png_reader.read_png_rows``), or log the failure to
         ``failed_path`` and return None (the reference's skip-and-log
-        contract).  With ``parent`` (the caller is tracing) the decode is
-        recorded as an ``encode.decode`` span under it, with the item's
-        index, the file's bytes and where its rows are unfiltered."""
+        contract); ``tracer`` records it under ``parent`` (module docstring)."""
         t0 = time.perf_counter_ns()
         result = None
         try:
@@ -587,12 +566,10 @@ class _Encoder:
         finally:
             t1 = time.perf_counter_ns()
             self._decode_seconds.append((t1 - t0) / 1e9)  # list.append is atomic
-            if parent is not None:
-                size = os.path.getsize(path) if os.path.isfile(path) else 0
-                where = None if result is None else (
-                    "card" if isinstance(result, FilteredRows) else "host")
-                TRACER.add("encode.decode", t0, t1, parent, item=item, bytes=size,
-                           unfilter=where)
+            tracer.add("encode.decode", t0, t1, parent, item=item,
+                       bytes=lambda: os.path.getsize(path) if os.path.isfile(path) else 0,
+                       unfilter=lambda: None if result is None else (
+                           "card" if isinstance(result, FilteredRows) else "host"))
 
 
 def _rows_with(dataset, column: str) -> List[Mapping]:

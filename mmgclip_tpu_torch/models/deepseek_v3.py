@@ -44,11 +44,11 @@ through the host.
 Tracing: while a profiler session records (``utils/profiling.py``), a
 forward on the card marks CUDA events in each MoE layer around its routing
 (gate, top-k, sort, offsets) and its experts (the grouped kernel, the
-combine and the shared experts), keeps each layer's tokens per expert, and
-records them once the forward is done, under the caller's open span (the
-bank chunk's): ``moe.route`` and ``moe.experts`` intervals per layer and one
-``moe.tokens_per_expert`` counter ``[MoE layers, experts]`` (its read-back
-is the forward's one synchronization, made only then).
+combine and the shared experts), hands them up with its tokens per expert
+(``Tracer.collect``), and the forward records them once done, under the
+caller's open span (the bank chunk's): ``moe.route`` and ``moe.experts`` per
+layer and one ``moe.tokens_per_expert`` counter ``[MoE layers, experts]``
+(its read-back is the forward's one synchronization, made only then).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ from torch.nn import functional as F
 
 from ..ops.mla_attention import mla_attention
 from ..ops.moe_experts import dispatch, moe_experts
-from ..utils.profiling import TRACER, DeviceClock, tracing
+from ..utils.profiling import recorder
 
 # keys of the published config.json that this tower takes only at one value
 FIXED_KEYS = {"q_lora_rank": None, "scoring_func": "sigmoid", "topk_method": "noaux_tc",
@@ -274,42 +274,33 @@ class MoE(nn.Module):
             weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
         return chosen, weights * c.routed_scaling_factor
 
-    def forward(self, h: torch.Tensor, trace: Optional["_MoeTrace"] = None) -> torch.Tensor:
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
         b, s, D = h.shape
         x = h.reshape(b * s, D)
-        marks = [trace.clock.mark()] if trace is not None else None
+        tracer = recorder()
+        start = tracer.mark(h.device)
         experts, weights = self.route(x)
         plan = dispatch(experts, self.c.n_routed_experts)
-        if marks is not None:
-            marks.append(trace.clock.mark())
+        routed = tracer.mark(h.device)
         y = moe_experts(x, plan, weights, self.w_gate_up, self.w_down)
         if self.shared_experts is not None:
             y = y + self.shared_experts(x).float()
         y = y.to(h.dtype).view(b, s, D)
-        if marks is not None:
-            marks.append(trace.clock.mark())
-            trace.layers.append((marks, plan.counts))
+        tracer.collect((start, routed, tracer.mark(h.device), plan.counts))
         return y
 
 
-class _MoeTrace:
-    """One forward's MoE device intervals and counts (module docstring):
-    each MoE layer appends (its three events, its tokens per expert)."""
-
-    def __init__(self, device):
-        self.clock, self.layers = DeviceClock(device), []
-
-    def flush(self) -> None:
-        if not self.layers:
-            return
-        parent, thread = TRACER.current(), str(self.clock.device)
-        counts = torch.stack([c for _m, c in self.layers]).tolist()  # waits for the forward
-        for i, (marks, _c) in enumerate(self.layers):
-            start, routed, end = (self.clock.resolve(m) for m in marks)
-            TRACER.add("moe.route", start, routed, parent=parent, thread=thread, layer=i)
-            TRACER.add("moe.experts", routed, end, parent=parent, thread=thread, layer=i)
-        t = self.clock.resolve(self.layers[-1][0][-1])
-        TRACER.add("moe.tokens_per_expert", t, t, parent=parent, thread=thread, counts=counts)
+def _record_moe(tracer, layers) -> None:
+    """Record a forward's MoE layers (module docstring): ``layers``, each
+    one's (start, routed, end) marks and tokens per expert, or None."""
+    if not layers:
+        return
+    parent = tracer.current()
+    counts = torch.stack([c for *_marks, c in layers]).tolist()  # waits for the forward
+    for i, (start, routed, end, _c) in enumerate(layers):
+        tracer.interval("moe.route", start, routed, parent, layer=i)
+        tracer.interval("moe.experts", routed, end, parent, layer=i)
+    tracer.interval("moe.tokens_per_expert", end, end, parent, counts=counts)
 
 
 class DecoderLayer(nn.Module):
@@ -320,10 +311,9 @@ class DecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(c.hidden_size, c.rms_norm_eps, build)
         self.mlp = MoE(c, build) if c.is_moe(index) else MLP(c.intermediate_size, c, build)
 
-    def forward(self, x: torch.Tensor, cos, sin, keys, trace=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cos, sin, keys) -> torch.Tensor:
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, keys)
-        h = self.post_attention_layernorm(x)
-        return x + (self.mlp(h, trace) if isinstance(self.mlp, MoE) else self.mlp(h))
+        return x + self.mlp(self.post_attention_layernorm(x))
 
 
 def attention_masks(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -363,12 +353,12 @@ class DeepseekV3TextEncoder(nn.Module):
             attention_mask = torch.ones(b, s, dtype=torch.int32, device=device)
         x = self.embed_tokens[input_ids.long()]
         cos, sin = rope_tables(s, c.qk_rope_head_dim, c.rope_theta, device)
-        trace = _MoeTrace(device) if device.type == "cuda" and tracing() else None
+        tracer = recorder()
+        moe_layers = tracer.collecting()
         for layer in self.layers:
-            x = layer(x, cos, sin, attention_mask, trace)
+            x = layer(x, cos, sin, attention_mask)
         out = self.norm(x, torch.float32)
-        if trace is not None:
-            trace.flush()
+        _record_moe(tracer, moe_layers)
         return out
 
 

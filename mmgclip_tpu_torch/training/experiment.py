@@ -78,7 +78,7 @@ from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, batch_rows, create
 from ..prompts.enums import BenignMalignantDatasetLabels, MassShapeLabels
 from ..utils import prng
 from ..utils.logging import logger
-from ..utils.profiling import TRACER, DeviceClock, maybe_trace, tracing
+from ..utils.profiling import maybe_trace, recorder
 from ..utils.seeding import create_directory_if_not_exists
 from ..utils.tb import ScalarWriter
 from .checkpoint import load_checkpoint
@@ -343,9 +343,8 @@ class ClassifierExperiment:
         n, width = tokens["input_ids"].shape[:2]
         outs = []
         tower = self._text_tower()
-        traced = tracing()
-        encode = TRACER.begin("bank.encode", rows=n, width=width) if traced else None
-        clock = DeviceClock(self.device) if traced and self.device.type == "cuda" else None
+        tracer = recorder()
+        encode = tracer.begin("bank.encode", rows=n, width=width)
         for start in range(0, n, chunk):
             piece = {k: np.asarray(v[start: start + chunk]) for k, v in tokens.items()}
             valid = piece["input_ids"].shape[0]
@@ -364,22 +363,15 @@ class ClassifierExperiment:
                          for k in ("input_ids", "attention_mask"))
             types = piece.get("token_type_ids")
             types = None if types is None else torch.as_tensor(types, device=self.device)
-            if traced:
-                span = TRACER.begin("bank.chunk", parent=encode, rows=valid,
-                                    valid_tokens=int(piece["attention_mask"][:valid].sum()),
-                                    computed_tokens=int(ids.numel()))
-                marks = [clock.mark()] if clock is not None else None
+            span = tracer.begin("bank.chunk", parent=encode, rows=valid,
+                                valid_tokens=lambda: int(piece["attention_mask"][:valid].sum()),
+                                computed_tokens=int(ids.numel()))
+            begin = tracer.mark(self.device)
             hidden = tower(ids, mask, types)
             outs.append(eos_pool(hidden, mask)[:valid])
-            if traced:
-                if marks is not None:
-                    marks.append(clock.mark())
-                    marks[-1].synchronize()
-                    TRACER.add("bank.device", clock.resolve(marks[0]), clock.resolve(marks[1]),
-                               parent=span, thread=str(self.device))
-                TRACER.end(span)
-        if traced:
-            TRACER.end(encode)
+            tracer.interval("bank.device", begin, tracer.mark(self.device), span)  # waits
+            tracer.end(span)
+        tracer.end(encode)
         bank = (torch.cat(outs) if outs
                 else torch.zeros((0, self.model.text_output_dimension), device=self.device))
         logger.info(f"Cached frozen text features for {n} rows.")

@@ -16,12 +16,12 @@ span's id, and a few attributes (batch id, rows, bytes).  Records are dicts
 
 * Recording is on exactly while a ``torch.profiler`` session is active on
   the calling thread (``tracing()``; ``maybe_trace``, an operator's own
-  profiler, a benchmark's traced run): no switch of its own.  A caller
-  reads it once per coarse call and passes the answer down.  The profiler's
-  state is thread-local (a pool worker reads it as off, and a
-  ``record_function`` entered there is not recorded), so worker threads
-  take the decision from the thread that started their work and record
-  finished spans with ``Tracer.add``.  Off, a call pays that one check.
+  profiler, a benchmark's traced run): no switch of its own.  A caller takes
+  ``recorder()`` once per coarse call, ``TRACER`` or ``INERT`` (the same calls,
+  recording nothing and calling no callable attribute), and calls it
+  unconditionally.  The profiler's state is thread-local (a pool worker reads
+  it as off, and a ``record_function`` entered there is not recorded), so
+  worker threads take the caller's tracer and record spans with ``add``.
 * Spans opened with ``Tracer.begin`` on the calling thread also open a
   profiler range ``"mmg:" + name``, so they sit in the profiler's own trace
   beside the device's kernels.  The range has function scope
@@ -34,11 +34,11 @@ span's id, and a few attributes (batch id, rows, bytes).  Records are dicts
   profiler's clock with it.  ``Tracer.current()`` is the innermost span
   the calling thread has open: a callee (a tower inside a bank chunk)
   records its spans under it without the caller handing it down.
-* ``DeviceClock`` gives device spans: CUDA event pairs on a device's current
-  stream, resolved onto the host clock against an anchor event recorded and
-  synchronized while the stream is idle.  Resolve a pair only after a
-  synchronization the caller makes anyway (a read-back of work queued after
-  it): the clock adds no synchronization of its own past the anchor.
+* Device spans: ``Tracer.mark(device)`` records a CUDA event on the
+  device's current stream, and ``Tracer.interval`` waits for a second mark
+  and records the span between them; a ``DeviceClock``, built at a device's
+  first mark after a root span begins, resolves them onto the host clock.
+  A callee hands marks up to its caller through ``Tracer.collect``.
 * Records are kept in memory, at most ``MAX_SPANS`` (65,536) of them: past
   that the oldest are dropped.  ``spans()`` reads them back, ``reset_spans()``
   clears them (``TRACER``, the process's tracer).
@@ -88,14 +88,16 @@ class Tracer:
         self._records: deque = deque(maxlen=capacity)  # append is atomic, drops the oldest
         self._ids = itertools.count(1)  # next() is atomic
         self.anchor: Optional[Tuple[int, int]] = None  # (perf_counter_ns, time_ns)
+        self._clocks: Dict[torch.device, DeviceClock] = {}  # since the last root span began
         self._open = threading.local()  # .spans: this thread's open spans, innermost last
 
     def begin(self, name: str, parent=None, start_ns: Optional[int] = None, **attrs) -> Span:
         """Open a span on this thread (also entered as an ``mmg:`` profiler
         event); ``start_ns`` is a ``perf_counter_ns()`` reading the caller
-        already took.  A root span (no parent) refreshes the anchor pair."""
+        already took.  A root span (no parent) refreshes the anchor pair and
+        the device clocks."""
         if parent is None:
-            self.anchor = (time.perf_counter_ns(), time.time_ns())
+            self.anchor, self._clocks = (time.perf_counter_ns(), time.time_ns()), {}
         mark = torch._C._profiler._RecordFunctionFast(PREFIX + name)
         mark.__enter__()
         start = time.perf_counter_ns() if start_ns is None else start_ns
@@ -103,9 +105,10 @@ class Tracer:
         self._stack().append(span)
         return span
 
-    def end(self, span: Span, end_ns: Optional[int] = None, **attrs) -> None:
+    def end(self, span: Span, end_ns: Optional[int] = None, **attrs) -> int:
         """Close ``span`` (``end_ns``: a reading the caller already took) and
-        record it, with ``attrs`` added to its attributes."""
+        record it, with ``attrs`` added to its attributes; -> its end
+        reading, for a span that starts where this one ends."""
         end = time.perf_counter_ns() if end_ns is None else end_ns
         span._mark.__exit__(None, None, None)
         stack = self._stack()
@@ -113,6 +116,7 @@ class Tracer:
             stack.remove(span)
         self._append(span.id, span.name, span.start_ns, end, threading.current_thread().name,
                      span.parent, {**span.attrs, **attrs})
+        return end
 
     def current(self) -> Optional[Span]:
         """The innermost span this thread has open (``begin`` without
@@ -134,10 +138,39 @@ class Tracer:
                      thread or threading.current_thread().name, _id(parent), attrs)
         return span_id
 
+    def mark(self, device) -> Optional[Tuple["DeviceClock", torch.cuda.Event]]:
+        """An event recorded now on ``device``'s current stream, and its
+        clock; None off the card."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+        if device not in self._clocks:
+            self._clocks[device] = DeviceClock(device)
+        return self._clocks[device], self._clocks[device].mark()
+
+    def interval(self, name: str, begin, end, parent=None, **attrs) -> None:
+        """Wait for ``end`` and record the span from ``begin`` to it (``mark``s
+        of one device) on the device's thread; marks off the card record
+        nothing.  After a read-back that passed ``end``, the wait is free."""
+        if end is None:
+            return
+        end[1].synchronize()
+        self.add(name, begin[0].resolve(begin[1]), end[0].resolve(end[1]), parent,
+                 thread=str(end[0].device), **attrs)
+
+    def collecting(self) -> List:
+        """A new list, to which this thread's ``collect`` calls append until
+        its next ``collecting()``."""
+        self._open.kept = []
+        return self._open.kept
+
+    def collect(self, item) -> None:
+        getattr(self._open, "kept", []).append(item)
+
     def _append(self, span_id, name, start_ns, end_ns, thread, parent, attrs) -> None:
         self._records.append({"id": span_id, "name": name, "start_ns": int(start_ns),
                               "end_ns": int(end_ns), "thread": thread, "parent": parent,
-                              "attrs": attrs})
+                              "attrs": {k: v() if callable(v) else v for k, v in attrs.items()}})
 
     def spans(self) -> List[Dict]:
         return list(self._records)
@@ -158,6 +191,24 @@ class Tracer:
 TRACER = Tracer()
 
 
+class InertTracer:
+    """``Tracer``'s calls while no profiler records: nothing is recorded,
+    no callable attribute called, no device marked."""
+
+    def begin(self, *_args, **_attrs) -> None:
+        return None
+
+    end = add = current = mark = interval = collecting = collect = begin
+
+
+INERT = InertTracer()
+
+
+def recorder():
+    """``TRACER`` while ``tracing()`` is on, else ``INERT``."""
+    return TRACER if tracing() else INERT
+
+
 def spans() -> List[Dict]:
     """The process tracer's records, oldest first."""
     return TRACER.spans()
@@ -168,9 +219,9 @@ def reset_spans() -> None:
 
 
 class DeviceClock:
-    """Device spans on ``device``'s current stream (module docstring).  The
-    constructor synchronizes the device, then records the anchor event and
-    waits for it: make one per coarse call, only while tracing."""
+    """Device events on ``device``'s current stream, resolved onto the host
+    clock (module docstring).  The constructor synchronizes the device, then
+    records the anchor event and waits for it (``Tracer.mark`` builds them)."""
 
     def __init__(self, device):
         self.device = torch.device(device)

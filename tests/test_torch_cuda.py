@@ -32,7 +32,8 @@ the ring all-gather across 2 and 4 processes sharing the card (gloo)
 bit-equal to ``torch.cat`` with one launch a call, its workspaces mapped and
 freed, a withheld hand-off and a rank that dies each raising within the
 deadline instead of hanging; the encoder's ``encode.device`` spans under a
-profiler, one per batch and replica, in submit order inside the pass; the
+profiler, one per batch and replica, in submit order inside the pass, and
+no ``DeviceClock`` built by an untraced ``extract()`` or bank encode; the
 PNG unfilter kernel bit-equal to the host unfilter (``csrc/png_unfilter.c``
 and the reader's byte swap) for every filter type, forced and mixed per row,
 at 8 and 16 bits, odd widths, one-pixel rows, saturated rows, zero pad
@@ -1124,6 +1125,7 @@ def test_encoder_device_spans_follow_the_batches(cuda_device, tmp_path, devices)
     assert [r["attrs"]["batch"] for r in spans] == [b for b in range(batches)
                                                     for _ in devices]
     assert all(r["parent"] == root["id"] and r["thread"] == "cuda:0" for r in spans)
+    assert all(r["attrs"].keys() == {"batch"} for r in spans)
     for before, after in zip(spans, spans[1:]):
         assert before["start_ns"] <= before["end_ns"] <= after["start_ns"] <= after["end_ns"]
     assert root["start_ns"] <= spans[0]["start_ns"] and spans[-1]["end_ns"] <= root["end_ns"]
@@ -1344,10 +1346,20 @@ def test_the_tower_records_its_moe_spans_under_each_bank_chunk(cuda_device, tmp_
         profiling.reset_spans()
     chunks = [r for r in records if r["name"] == "bank.chunk"]
     assert [c["attrs"]["rows"] for c in chunks] == [256, 32]
+    assert {r["name"] for r in records} == {"bank.encode", "bank.chunk", "bank.device", "moe.route",
+                                            "moe.experts", "moe.tokens_per_expert"}
+    keys = {"bank.device": set(), "moe.route": {"layer"}, "moe.experts": {"layer"},
+            "moe.tokens_per_expert": {"counts"}}
+    for r in records:
+        if r["name"] in keys:
+            assert r["attrs"].keys() == keys[r["name"]], r["name"]
+            # the bank's device as the trainer names it; the tower's as its tensors do
+            assert r["thread"] == (str(exp.device) if r["name"] == "bank.device" else "cuda:0")
     moe_layers = TINY.num_hidden_layers - TINY.first_k_dense_replace
     for chunk in chunks:
         (device,) = [r for r in records if r["name"] == "bank.device" and r["parent"] == chunk["id"]]
         inside = [r for r in records if r["parent"] == chunk["id"] and r["name"].startswith("moe.")]
+        assert len(inside) == 2 * moe_layers + 1
         route = [r for r in inside if r["name"] == "moe.route"]
         experts = [r for r in inside if r["name"] == "moe.experts"]
         (counts,) = [r["attrs"]["counts"] for r in inside if r["name"] == "moe.tokens_per_expert"]
@@ -1359,6 +1371,34 @@ def test_the_tower_records_its_moe_spans_under_each_bank_chunk(cuda_device, tmp_
         assert np.asarray(counts).shape == (moe_layers, TINY.n_routed_experts)
         assert np.asarray(counts).sum(axis=1).tolist() == \
             [chunk["attrs"]["computed_tokens"] * TINY.num_experts_per_tok] * moe_layers
+
+
+def test_untraced_runs_make_no_device_clock(cuda_device, tmp_path, monkeypatch):
+    """Without a profiler session neither ``extract()`` (through the card
+    unfilter) nor the DeepSeek-V3 bank's ``_pool_tokens`` builds a
+    ``DeviceClock``: with one that raises, both complete and record no span."""
+    import chip_smoke
+    from mmgclip_tpu_torch.ingest.encode import ImageFeatureExtractor
+    from mmgclip_tpu_torch.utils import profiling
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("an untraced run built a DeviceClock")
+
+    monkeypatch.setattr(profiling, "DeviceClock", refuse)
+    profiling.reset_spans()
+    rows = []
+    for i, (h, w) in enumerate([(256, 208)] * 3):
+        path = str(tmp_path / "2D_100micron" / f"view_{i}.png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        chip_smoke.write_png16(path, chip_smoke.synthetic_mammogram(h, w, seed=i), paeth=True)
+        rows.append({"image_path": path})
+    cfg = chip_smoke.store_config(str(tmp_path), ("", "", ""), str(tmp_path / "store"))
+    ex = ImageFeatureExtractor(cfg, dataset=rows, batch_size=2, device=cuda_device)
+    assert ex.extract() == len(rows)
+    exp, loader = _moe_trainer(cuda_device, tmp_path / "bank")  # banks its rows untraced
+    bank = exp._pool_tokens(loader(1).dataset._tokens)
+    assert bank.shape[0] == 48 and bool(torch.isfinite(bank).all())
+    assert profiling.spans() == []
 
 
 # ----------------------------------------------------------------------

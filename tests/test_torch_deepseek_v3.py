@@ -354,7 +354,10 @@ def test_the_bank_records_its_spans_under_a_profiler(tmp_path):
     chunks = [r for r in records if r["name"] == "bank.chunk"]
     assert len(encode) == 1 and encode[0]["attrs"] == {"rows": 300, "width": 32}
     assert [c["attrs"]["rows"] for c in chunks] == [256, 44]
+    assert all(set(c["attrs"]) == {"rows", "valid_tokens", "computed_tokens"} for c in chunks)
     assert all(c["parent"] == encode[0]["id"] for c in chunks)
+    assert encode[0]["parent"] is None
+    assert {r["name"] for r in records} == {"bank.encode", "bank.chunk"}  # no device spans off the card
     valid = int(rows._tokens["attention_mask"].sum())
     assert sum(c["attrs"]["valid_tokens"] for c in chunks) == valid
     assert [c["attrs"]["computed_tokens"] for c in chunks] == [256 * 32, 256 * 32]

@@ -11,11 +11,16 @@ of the feature-store encode, on the CPU.
   median of several spans, so that a preempted thread does not decide).
 * The buffer keeps the newest ``capacity`` records.
 * ``maybe_trace`` writes the session's spans beside its Chrome trace.
+* ``recorder()`` is ``TRACER`` only while recording; ``INERT`` takes the
+  same calls, records nothing and calls no callable attribute, which
+  ``TRACER`` calls as it records; a mark off the card is None and records
+  no interval; ``collect`` hands items to the thread's latest
+  ``collecting()`` list.
 * ``_Encoder.encode_batches`` under a CPU profiler session: one
   ``encode.pass``, a decode and a decode wait per image, assemble, submit,
   read-back and write per batch with ids 0..k-1, every child inside the
   pass, no device span off the card, and the features bit-equal to an
-  untraced call.
+  untraced call, which stats no file.
 """
 
 import contextlib
@@ -34,11 +39,20 @@ import chip_smoke
 from mmgclip_tpu_torch.config import Config, compose
 from mmgclip_tpu_torch.ingest.encode import _Encoder
 from mmgclip_tpu_torch.utils import profiling
-from mmgclip_tpu_torch.utils.profiling import PREFIX, TRACER, Tracer, maybe_trace, tracing
+from mmgclip_tpu_torch.utils.profiling import (INERT, PREFIX, TRACER, Tracer, maybe_trace,
+                                               recorder, tracing)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLOCK_TOL_NS = 100_000
 CPU = [torch.profiler.ProfilerActivity.CPU]
+# each encode span's attribute keys (``encode.device``, on the card only: {"batch"})
+ENCODE_ATTRS = {"encode.pass": {"items", "devices", "batches"},
+                "encode.decode_wait": {"item"},
+                "encode.assemble": {"batch", "rows", "bytes"},
+                "encode.submit": {"batch"},
+                "encode.readback": {"batch"},
+                "encode.write": {"batch", "rows"},
+                "encode.decode": {"item", "bytes", "unfilter"}}
 
 
 @pytest.fixture(autouse=True)
@@ -137,6 +151,58 @@ def test_maybe_trace_writes_the_sessions_spans(tmp_path):
     assert abs(written["spans"][0]["start_ns"] - time.time_ns()) < 60e9
 
 
+def _refuse():
+    raise AssertionError("an inert tracer called an attribute")
+
+
+def test_the_recorder_is_inert_off_the_profiler():
+    assert recorder() is INERT
+    assert INERT.begin("s", None, 5, cost=_refuse) is None
+    assert INERT.end(None, 7, cost=_refuse) is None
+    assert INERT.add("s", 0, 1, None, cost=_refuse) is None
+    assert INERT.mark("cpu") is None and INERT.current() is None
+    assert INERT.interval("s", None, None, None, cost=_refuse) is None
+    assert INERT.collecting() is None and INERT.collect(1) is None
+    with torch.profiler.profile(activities=CPU):
+        assert recorder() is TRACER
+    assert profiling.spans() == []
+
+
+def test_callable_attributes_are_computed_as_the_span_is_recorded():
+    tracer = Tracer()
+    calls = []
+    with torch.profiler.profile(activities=CPU):
+        span = tracer.begin("outer", rows=lambda: calls.append("rows") or 3)
+        assert calls == []  # not before the span is recorded
+        assert tracer.end(span, 99, bytes=lambda: 12) == 99
+        tracer.add("worker", 0, 1, span, item=lambda: 7)
+    records = {r["name"]: r for r in tracer.spans()}
+    assert records["outer"]["attrs"] == {"rows": 3, "bytes": 12} and calls == ["rows"]
+    assert records["outer"]["end_ns"] == 99 and records["worker"]["attrs"] == {"item": 7}
+
+
+def test_a_mark_off_the_card_records_no_interval():
+    tracer = Tracer()
+    with torch.profiler.profile(activities=CPU):
+        root = tracer.begin("root")
+        begin = tracer.mark(torch.device("cpu"))
+        tracer.interval("dev", begin, tracer.mark("cpu"), root, cost=_refuse)
+        tracer.end(root)
+    assert begin is None and [r["name"] for r in tracer.spans()] == ["root"]
+
+
+def test_collect_hands_items_to_the_latest_collecting_list():
+    tracer = Tracer()
+    tracer.collect("dropped")  # no list yet
+    first = tracer.collecting()
+    tracer.collect(1)
+    with ThreadPoolExecutor(1) as pool:
+        pool.submit(tracer.collect, "other thread").result()
+    second = tracer.collecting()
+    tracer.collect(2)
+    assert first == [1] and second == [2]
+
+
 @pytest.fixture(scope="module")
 def encoder(tmp_path_factory):
     """A micro-tower CPU encoder over five small 16-bit PNGs of two shapes."""
@@ -164,8 +230,13 @@ def _encode(encoder):
     return out
 
 
-def test_encode_records_its_spans_under_a_profiler(encoder):
-    untraced = _encode(encoder)
+def test_encode_records_its_spans_under_a_profiler(encoder, monkeypatch):
+    def no_stat(path):
+        raise AssertionError(f"an untraced encode read the size of {path}")
+
+    with monkeypatch.context() as patched:
+        patched.setattr(os.path, "getsize", no_stat)
+        untraced = _encode(encoder)
     assert profiling.spans() == []
     assert set(encoder[0].timings) == {"decode_s", "decode_wait_s", "write_s"}
     with torch.profiler.profile(activities=CPU):
@@ -178,7 +249,14 @@ def test_encode_records_its_spans_under_a_profiler(encoder):
     by_name = {}
     for r in records:
         by_name.setdefault(r["name"], []).append(r)
+    for name, keys in ENCODE_ATTRS.items():
+        assert all(set(r["attrs"]) == keys for r in by_name[name]), name
+    main = threading.current_thread().name
+    assert all(r["thread"] == main for name in ENCODE_ATTRS if name != "encode.decode"
+               for r in by_name[name])
+    assert {r["attrs"]["unfilter"] for r in by_name["encode.decode"]} == {"host"}
     (root,) = by_name.pop("encode.pass")
+    assert root["attrs"]["items"] == len(encoder[1]) and root["attrs"]["devices"] == 1
     n_items, batches = len(encoder[1]), root["attrs"]["batches"]
     assert root["parent"] is None and batches == 3  # 2 + 2 of two shapes, then the 1 left
     assert sorted(r["attrs"]["item"] for r in by_name["encode.decode"]) == list(range(n_items))
