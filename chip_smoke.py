@@ -105,6 +105,7 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -626,11 +627,13 @@ def phase_png_unfilter(device, n=32, hw=(2294, 1914)):
 
 
 def moe_layer_inputs(device, tokens=131072, d_model=2048, width=1408, experts=64, k=6,
-                     empty=(5, 40), seed=11):
+                     empty=(5, 40), seed=11, counts=None):
     """One MoE layer's chunk at the published widths (Moonlight-16B-A3B: 256
     rows x 512 positions): bf16 activations and expert weights, skewed
-    routing with the experts ``empty`` given no token.  -> (x, plan,
-    weights, w_gate_up, w_down)."""
+    routing with the experts ``empty`` given no token; or, with ``counts``
+    (rows per expert, summing to ``tokens * k``), exactly that many
+    (token, slot) rows routed to each expert in a seeded order.  -> (x,
+    plan, weights, w_gate_up, w_down)."""
     from mmgclip_tpu_torch.ops.moe_experts import dispatch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -639,22 +642,57 @@ def moe_layer_inputs(device, tokens=131072, d_model=2048, width=1408, experts=64
                  ).to(torch.bfloat16)
     w_down = (0.02 * torch.randn(experts, d_model, width, generator=g, device=device)
               ).to(torch.bfloat16)
-    logits = torch.randn(tokens, experts, generator=g, device=device)
-    logits += torch.linspace(-1.5, 1.5, experts, device=device)  # uneven counts
-    logits[:, list(empty)] = float("-inf")
-    chosen = torch.topk(logits, k, dim=-1).indices
+    if counts is None:
+        logits = torch.randn(tokens, experts, generator=g, device=device)
+        logits += torch.linspace(-1.5, 1.5, experts, device=device)  # uneven counts
+        logits[:, list(empty)] = float("-inf")
+        chosen = torch.topk(logits, k, dim=-1).indices
+    else:
+        flat = torch.repeat_interleave(torch.arange(experts, device=device),
+                                       torch.as_tensor(counts, device=device))
+        chosen = flat[torch.randperm(tokens * k, generator=g, device=device)].view(tokens, k)
     weights = torch.rand(tokens, k, generator=g, device=device) + 0.1
     weights = weights / weights.sum(-1, keepdim=True) * 2.446
     return x, dispatch(chosen, experts), weights, w_gate_up, w_down
 
 
+def sm_clock(fn):
+    """``fn()`` with ``nvidia-smi`` sampling the SM clock and the board's
+    power every 50 ms -> (its result, median MHz, median W) of the samples
+    stamped while it ran; the medians are None where none was."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.5)  # let the sampler start before the work
+        start = datetime.datetime.now()
+        result = fn()
+        end = datetime.datetime.now()
+    finally:
+        smi.terminate()
+        lines = smi.communicate()[0].splitlines()
+    samples = []
+    for line in lines:
+        try:
+            stamp, mhz, watts = (v.strip() for v in line.split(","))
+            if start <= datetime.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f") <= end:
+                samples.append((float(mhz), float(watts)))
+        except ValueError:
+            continue
+    if not samples:
+        return result, None, None
+    mhz, watts = np.median(np.asarray(samples), axis=0)
+    return result, float(mhz), float(watts)
+
+
 def phase_moe_experts(device, tokens=131072):
     """The grouped expert kernel (``csrc/moe_experts.cu``) against its plain
     version on one layer's chunk at the published widths, zero-token experts
-    included; then device ms a call beside its bound, a per-expert cuBLAS
-    loop (bf16, counts read on the host beforehand; CUDA events around one
-    call, host gaps included) and the plain version (host clock, one call).
-    -> the times."""
+    included; then device ms a call beside its bound (its TFLOP/s, share of
+    the bound, and the SM clock and power sampled while it runs), a
+    per-expert cuBLAS loop (bf16, counts read on the host beforehand; CUDA
+    events around one call, host gaps included) and the plain version (host
+    clock, one call).  -> the times."""
     from mmgclip_tpu_torch.ops.moe_experts import launch_moe_experts, plain_moe_experts
 
     x, plan, weights, w_gate_up, w_down = moe_layer_inputs(device, tokens)
@@ -697,15 +735,17 @@ def phase_moe_experts(device, tokens=131072):
     active = sum(c > 0 for c in counts)
     nbytes = (tokens * D * 2 + active * 3 * I * D * 2 + 2 * rows * I * 2 + rows * 8
               + rows * D * 2)
-    times = {"kernel_ms": device_ms(lambda: launch_moe_experts(x, plan, weights, w_gate_up, w_down),
-                                    calls=5),
+    kernel_ms, mhz, watts = sm_clock(lambda: device_ms(
+        lambda: launch_moe_experts(x, plan, weights, w_gate_up, w_down), calls=10))
+    times = {"kernel_ms": kernel_ms,
              "cublas_loop_ms": time_ms(cublas_loop, warmup=1, iters=3),
              "plain_ms": plain_ms,
-             "bound_ms": max(ops / 989e12, nbytes / 3.35e12) * 1e3}
-    log(f"    kernel {times['kernel_ms']:.3f} ms a call ({ops / times['kernel_ms'] / 1e9:.1f} "
-        f"TFLOP/s; bound {times['bound_ms']:.3f} ms: "
-        f"{100 * times['bound_ms'] / times['kernel_ms']:.1f}%), per-expert cuBLAS loop "
-        f"{times['cublas_loop_ms']:.3f} ms, plain {plain_ms:.1f} ms")
+             "bound_ms": max(ops / 989e12, nbytes / 3.35e12) * 1e3,
+             "sm_mhz": mhz, "watts": watts}
+    log(f"    kernel {kernel_ms:.3f} ms a call ({ops / kernel_ms / 1e9:.1f} TFLOP/s; bound "
+        f"{times['bound_ms']:.3f} ms: {100 * times['bound_ms'] / kernel_ms:.1f}%; SM clock median "
+        f"{mhz} MHz, board {watts} W), per-expert cuBLAS loop {times['cublas_loop_ms']:.3f} ms, "
+        f"plain {plain_ms:.1f} ms")
     return times
 
 

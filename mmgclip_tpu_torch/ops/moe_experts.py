@@ -33,7 +33,7 @@ _SOURCE = "moe_experts.cu"
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
     "mmg_moe_gate_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mmg_moe_down": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mmg_moe_down": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 TILE_ROWS = 128  # the kernel's BM
 
@@ -116,8 +116,6 @@ def launch_moe_experts(x: torch.Tensor, plan: Plan, weights: torch.Tensor,
     T, k = weights.shape
     R = T * k
     max_tiles = -(-R // TILE_ROWS) + E
-    if max_tiles > 65535:
-        raise ValueError(f"launch_moe_experts: {R} rows need more than 65,535 tiles")
     x, w_gate_up, w_down = x.contiguous(), w_gate_up.contiguous(), w_down.contiguous()
     h = torch.empty(R, I, dtype=x.dtype, device=x.device)
     rows = torch.empty(R, D, dtype=x.dtype, device=x.device)
@@ -132,7 +130,7 @@ def launch_moe_experts(x: torch.Tensor, plan: Plan, weights: torch.Tensor,
         check(lib, code, "moe_experts (gate|up)")
         code = lib.mmg_moe_down(h.data_ptr(), w_down.data_ptr(), row_weights.data_ptr(),
                                 dest.data_ptr(), plan.offsets.data_ptr(),
-                                plan.tile_offsets.data_ptr(), rows.data_ptr(), E, D, I,
+                                plan.tile_offsets.data_ptr(), rows.data_ptr(), E, D, I, R,
                                 max_tiles, stream)
         check(lib, code, "moe_experts (down)")
     count_launch("moe_experts")

@@ -1238,11 +1238,21 @@ def test_extract_writes_the_same_store_through_the_card_unfilter(cuda_device, tm
 # ----------------------------------------------------------------------
 # the grouped expert kernel (csrc/moe_experts.cu)
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("tokens,d_model,width,experts,k", [
-    (131072, 2048, 1408, 64, 6),  # one chunk of Moonlight-16B-A3B's bank encode
-    (333, 72, 40, 8, 2),          # ragged tiles, K past one 64-wide step, N past one tile
-])
-def test_moe_experts_kernel_matches_plain(cuda_device, tokens, d_model, width, experts, k):
+# one expert takes 30,000 of 32,768 rows: 1,044 tiles of uneven expert shares
+# over the 132 persistent CTAs
+SKEWED_COUNTS = [30000, 0] + [212] * 12 + [0, 224]
+# an expert of one row and counts at 128 j - 1, 128 j and 128 j + 1
+EDGE_COUNTS = [1, 0, 127, 128, 129, 255, 256, 257, 383, 384, 385, 1, 2, 3, 0, 289]
+
+
+@pytest.mark.parametrize("tokens,d_model,width,experts,k,counts", [
+    (131072, 2048, 1408, 64, 6, None),  # one chunk of Moonlight-16B-A3B's bank encode
+    (333, 72, 40, 8, 2, None),          # ragged tiles, K past one 64-wide step, N past one tile
+    (8192, 1024, 512, 16, 4, SKEWED_COUNTS),
+    (1300, 320, 192, 16, 2, EDGE_COUNTS),
+    (4099, 200, 136, 16, 4, None),      # N past 128 (half a gate|up tile), K past 192
+], ids=["moonlight", "ragged", "skewed", "edges", "narrow"])
+def test_moe_experts_kernel_matches_plain(cuda_device, tokens, d_model, width, experts, k, counts):
     """Uneven counts with two experts given no token; the kernel's weighted
     sum against its plain version within two bf16 steps of the largest
     value (the SwiGLU and each weighted row are rounded to bf16 on both
@@ -1251,14 +1261,44 @@ def test_moe_experts_kernel_matches_plain(cuda_device, tokens, d_model, width, e
     import chip_smoke
 
     x, plan, weights, w_gate_up, w_down = chip_smoke.moe_layer_inputs(
-        cuda_device, tokens, d_model, width, experts, k, empty=(1, experts - 2))
+        cuda_device, tokens, d_model, width, experts, k, empty=(1, experts - 2), counts=counts)
     assert plan.counts[1] == 0 and plan.counts[experts - 2] == 0
+    if counts is not None:
+        assert plan.counts.tolist() == counts
     before = launch_counts()["moe_experts"]
     got = launch_moe_experts(x, plan, weights, w_gate_up, w_down)
     assert launch_counts()["moe_experts"] == before + 1
     want = plain_moe_experts(x, plan, weights, w_gate_up, w_down)
     assert float((got - want).abs().max() / want.abs().max()) <= BF16_REL_TOL
     assert torch.equal(launch_moe_experts(x, plan, weights, w_gate_up, w_down), got)
+
+
+def test_moe_experts_kernel_replays_in_a_cuda_graph(cuda_device):
+    """A call captured in a CUDA graph, then replayed after new activations,
+    routing and weights are copied into the captured tensors, gives the bits
+    of an eager launch on those inputs: the kernel reads its tile count and
+    offsets on the device, and its tensor maps name the captured buffers."""
+    import chip_smoke
+
+    shape = (2048, 256, 136, 16, 4)
+    x, plan, weights, w_gate_up, w_down = chip_smoke.moe_layer_inputs(
+        cuda_device, *shape, empty=(1, 14), seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch_moe_experts(x, plan, weights, w_gate_up, w_down)  # builds and loads the library
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch_moe_experts(x, plan, weights, w_gate_up, w_down)
+    for seed, empty in ((4, (2, 9)), (5, (0, 15))):
+        fresh = chip_smoke.moe_layer_inputs(cuda_device, *shape, empty=empty, seed=seed)
+        for static, new in zip((x, weights, w_gate_up, w_down), fresh[:1] + fresh[2:]):
+            static.copy_(new)
+        for name in ("order", "tokens", "offsets", "tile_offsets", "counts"):
+            getattr(plan, name).copy_(getattr(fresh[1], name))
+        graph.replay()
+        assert torch.equal(out, launch_moe_experts(*fresh))
 
 
 def _moe_trainer(device, tmp_path):
