@@ -870,6 +870,96 @@ def phase_mla_attention(device, rows=256, width=512, seed=2147483659):
     return times
 
 
+KDA_ROW_L2_TOL = 1e-2  # KDA kernel vs its plain version, each row's relative L2: both sum in
+                      # float32 (token by token against the chunked form), then round to bf16
+
+
+def kda_layer_inputs(device, lengths, width=512, heads=32, d=128, seed=17):
+    """One KDA layer's scan inputs at a bank chunk, as the tower's projections
+    give them: q, k, v, f ``[b, width, H d]`` and beta ``[b, width, H]`` bf16
+    (q, k, v N(0, 1), f N(0, 0.22), beta N(0, 1): the cell's magnitudes), the
+    convolutions U(-0.5, 0.5), ``A_log`` = log U(1, 16), softplus(``dt_bias``)
+    log-uniform in [1e-3, 1e-1], the rows' ``lengths`` -> the ``kda`` arguments."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, HD = len(lengths), heads * d
+
+    def draw(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=device)).to(torch.bfloat16)
+
+    q, k, v = (draw(b, width, HD) for _ in range(3))
+    f = draw(b, width, HD, scale=0.22)
+    beta = draw(b, width, heads)
+    convs = [(torch.rand(HD, 4, generator=g, device=device) - 0.5).to(torch.bfloat16)
+             for _ in range(3)]
+    a_log = (1 + 15 * torch.rand(heads, generator=g, device=device)).log()
+    dt = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand(HD, generator=g, device=device))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    lens = torch.as_tensor(np.asarray(lengths), dtype=torch.int32, device=device)
+    return q, k, v, f, beta, *convs, a_log, dt_bias, lens
+
+
+def kda_bound(lengths, heads=32, d=128, chunk=64, peaks=PEAKS["H100 80GB HBM3"]) -> float:
+    """The least seconds of one launch over rows of these valid lengths, by
+    ``kda.scan_roofline``'s formula: the larger of the chunked form's
+    operations (a chunk of n tokens and a head: 2 (3 n d^2 + 2 n^2 d)) at the
+    bf16 peak and, a valid token, its q, k, v, f (H d each) and beta (H) read
+    and its output (H d) written, bf16, at the HBM peak."""
+    ops = 0.0
+    for n in map(int, lengths):
+        full, rest = divmod(n, chunk)
+        for m in [chunk] * full + ([rest] if rest else []):
+            ops += 2.0 * heads * (3 * m * d * d + 2 * m * m * d)
+    nbytes = 2.0 * sum(map(int, lengths)) * (5 * heads * d + heads)
+    return max(ops / peaks["bf16"], nbytes / peaks["bytes"])
+
+
+def kda_errors(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """-> (max |diff| / max |plain|, relative L2 of the worst row)."""
+    diff = got.float() - want.float()
+    rows = diff.flatten(1).norm(dim=1) / want.float().flatten(1).norm(dim=1).clamp(min=1e-30)
+    return float(diff.abs().max() / want.float().abs().max()), float(rows.max())
+
+
+def phase_kda(device, rows=256, width=512, seed=2147483671):
+    """The KDA scan kernel (``csrc/kda.cu``) against its plain version on one
+    layer of one bank chunk at the cell's shape (Kimi-Linear-48B-A3B's 32
+    heads of 128, lengths drawn as the bank cell draws them): every element
+    within two bf16 steps of the largest, each row within ``KDA_ROW_L2_TOL``,
+    zeros past each row's length, a second launch bit-equal; then device ms a
+    call beside ``kda.scan_roofline``'s bound and the plain version's, with
+    the SM clock sampled.  -> the times."""
+    from mmgclip_tpu_torch.ops.kda import launch_kda, plain_kda
+
+    lengths = bank_lengths(rows, seed)
+    args = kda_layer_inputs(device, lengths, width, seed=seed % 1000)
+    kernel = lambda: launch_kda(*args)  # noqa: E731
+    plain = lambda: plain_kda(*args)  # noqa: E731
+    got = kernel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, row_l2 = kda_errors(got, want)
+    pad = torch.arange(width, device=device)[None, :] >= args[-1][:, None]
+    log(f"    {rows} rows x {width}, lengths {int(lengths.min())}..{int(lengths.max())} (median "
+        f"{int(np.median(lengths))}): max |diff| / max |plain| {err:.3e}, worst row's rel L2 "
+        f"{row_l2:.3e}, padding {'zero' if not got[pad].any() else 'NOT ZERO'}")
+    if not (err <= BF16_REL_TOL and row_l2 <= KDA_ROW_L2_TOL and not got[pad].any()):
+        raise AssertionError(f"kda differs from its plain version: max {err:.3e}, worst row "
+                             f"{row_l2:.3e}")
+    if not torch.equal(kernel(), got):
+        raise AssertionError("kda: a second launch on the same inputs differs")
+    del got, want
+    kernel_ms, mhz, watts = sm_clock(lambda: device_ms(kernel, calls=10))
+    times = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": kda_bound(lengths) * 1e3,
+             "sm_mhz": mhz, "watts": watts, "valid_tokens": int(lengths.sum())}
+    log(f"    kernel {kernel_ms:.4f} ms a layer-chunk (bound {times['bound_ms']:.4f} ms: "
+        f"{100 * times['bound_ms'] / kernel_ms:.1f}%; SM clock median {mhz} MHz, board {watts} W), "
+        f"plain {plain_ms:.1f} ms (one call, host clock)")
+    return times
+
+
 def phase_dropout_parity(device):
     """``mmg_dropout`` and ``mmg_threefry2x32`` against the plain version on
     the CPU (``utils/prng.py``): masks, outputs and gradients bit-equal at
@@ -4131,6 +4221,10 @@ def main() -> int:
     # 5e. the port-only causal latent-attention kernel --------------------------
     log("[5e] mla_attention vs its plain version at a Moonlight-16B-A3B bank chunk, then its times")
     phase_mla_attention(device)
+
+    # 5f. the port-only KDA scan kernel ---------------------------------------
+    log("[5f] kda vs its plain version at a Kimi-Linear-48B-A3B bank chunk, then its times")
+    phase_kda(device)
 
     # 6. the serving path ---------------------------------------------------------
     log("[6] serving path: ConvNeXt-Tiny (fused blocks, bf16) + BERT-base (flash), seeded weights")

@@ -19,7 +19,8 @@
 //     pair i of a q_pe or k_pe row at position p turns by their row p, in
 //     float32 with products and sums rounded one by one (__fmul_rn /
 //     __fadd_rn / __fsub_rn: no FMA contraction), then rounds to bf16: the
-//     operands are bit-equal to rope_pairs' output.
+//     operands are bit-equal to rope_pairs' output.  Both null: no rotation
+//     (NoPE, Kimi-Linear's latent attention), q_pe and k_pe used as given.
 //   * mask [b, s] bytes (batch stride any, position stride 1): key j may be
 //     attended by query i iff j <= i and mask[j] != 0 (attention_masks).
 //     Masked keys score NEG_INF = -1e30 before the max, as the plain path's
@@ -159,15 +160,17 @@ __device__ __forceinline__ void rotate(bf16* tile, int pos0, int s, const float*
   const int r = threadIdx.x >> 1, p0 = (threadIdx.x & 1) * PER;
   const int pos = pos0 + r;
   if (pos >= s) return;
-  float c[PER], sn[PER];
-  load_floats<PER>(c, cos + (long long)pos * HALF + p0);
-  load_floats<PER>(sn, sin + (long long)pos * HALF + p0);
   __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(tile + r * KS + NOPE) + p0;
+  if (cos != nullptr) {
+    float c[PER], sn[PER];
+    load_floats<PER>(c, cos + (long long)pos * HALF + p0);
+    load_floats<PER>(sn, sin + (long long)pos * HALF + p0);
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const float2 ab = __bfloat1622float2(x[i]);
-    x[i] = __floats2bfloat162_rn(__fsub_rn(__fmul_rn(ab.x, c[i]), __fmul_rn(ab.y, sn[i])),
-                                 __fadd_rn(__fmul_rn(ab.x, sn[i]), __fmul_rn(ab.y, c[i])));
+    for (int i = 0; i < PER; ++i) {
+      const float2 ab = __bfloat1622float2(x[i]);
+      x[i] = __floats2bfloat162_rn(__fsub_rn(__fmul_rn(ab.x, c[i]), __fmul_rn(ab.y, sn[i])),
+                                   __fadd_rn(__fmul_rn(ab.x, sn[i]), __fmul_rn(ab.y, c[i])));
+    }
   }
   if (dst != nullptr && pos < limit) {
     __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst + pos * dst_stride) + p0;
@@ -439,7 +442,8 @@ int mmg_mla_attention(const void* q, long long q_sb, long long q_ss, const void*
   if (b <= 0 || b > 65535 || heads <= 0 || heads > 65535 || s <= 0)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k_pe) || !aligned16(kv) || !aligned16(out) || !aligned16(cos) ||
-      !aligned16(sin) || (q_sb | q_ss | kpe_sb | kpe_ss | kv_sb | kv_ss) % 8 != 0)
+      !aligned16(sin) || (cos == nullptr) != (sin == nullptr) ||
+      (q_sb | q_ss | kpe_sb | kpe_ss | kv_sb | kv_ss) % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nope == 128 && rope == 64 && vd == 128)

@@ -4,8 +4,9 @@ The dual-encoder CLIP head over frozen towers: stored 768-d ConvNeXt
 features are flattened (the ``ConvNextTiny`` feature path) or re-encoded by
 the ResNet-50 tower (``ResNet50Encoder``, the ablation path, whose
 ``layer4`` trains), the frozen text tower (BERT, the causal BioGPT-family
-``CausalTextEncoder``, or the DeepSeek-V3-family ``DeepseekV3TextEncoder``,
-built straight on the model's device) is EOS-pooled, each side goes through
+``CausalTextEncoder``, the DeepSeek-V3-family ``DeepseekV3TextEncoder`` or
+the hybrid ``KimiLinearTextEncoder``, these two built straight on the
+model's device) is EOS-pooled, each side goes through
 its projection head, then L2-normalization and the learnable logit scale.
 Parameters live on the module (``weights.load_clip_params`` loads the JAX
 trainable tree, ``weights.clip_params_tree`` writes it back).  The text
@@ -38,6 +39,8 @@ from .bert import BertConfig, BertEncoder, eos_pool, trim_padded_tail
 from .deepseek_v3 import (DeepseekV3Config, DeepseekV3TextEncoder, load_deepseek_v3_weights,
                           read_snapshot)
 from .gpt import CausalTextEncoder, GPTConfig
+from .kimi_linear import (KimiLinearConfig, KimiLinearTextEncoder, hf_names as kimi_hf_names,
+                          load_kimi_linear_weights)
 from .projections import get_projection_head
 from .resnet import ResNet50Encoder, ResNetConfig
 
@@ -63,16 +66,25 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 
 
 CAUSAL_TEXT_ENCODERS = ("CausalTextEncoder", "BioGptEncoder", "GPTEncoder")
-MOE_TEXT_ENCODERS = ("DeepseekV3TextEncoder",)
+# name -> (config, tower) of the towers built on their device
+MOE_TEXT_ENCODERS = {"DeepseekV3TextEncoder": (DeepseekV3Config, DeepseekV3TextEncoder),
+                     "KimiLinearTextEncoder": (KimiLinearConfig, KimiLinearTextEncoder)}
+
+
+def _hf_loader(module_cls) -> tuple:
+    """A tower's HF loader and names (looked up when called)."""
+    if module_cls is KimiLinearTextEncoder:
+        return load_kimi_linear_weights, kimi_hf_names
+    return load_deepseek_v3_weights, None
 
 
 def _text_tower_config_from(config: Config, vocab_size: Optional[int], config_cls):
     """Size keys, vocab fallback and dtype from ``networks.text_encoder.config``
     (the same keys the JAX package reads) -> ``BertConfig`` / ``GPTConfig``;
-    ``DeepseekV3Config`` reads every published key it has."""
+    ``DeepseekV3Config`` and ``KimiLinearConfig`` read every published key they have."""
     overrides = config.get_path("networks.text_encoder.config", {}) or {}
-    if config_cls is DeepseekV3Config:
-        tower = DeepseekV3Config.from_overrides(overrides)
+    if config_cls in (DeepseekV3Config, KimiLinearConfig):
+        tower = config_cls.from_overrides(overrides)
         if "dtype" in overrides:
             tower = dataclasses.replace(tower, dtype=resolve_dtype(overrides["dtype"]))
         return tower
@@ -91,11 +103,12 @@ def _text_tower_config_from(config: Config, vocab_size: Optional[int], config_cl
 class MMGCLIP(nn.Module):
     """Text tower, projection heads and logit scale of the CLIP model.
 
-    ``device``: where a ``DeepseekV3TextEncoder`` is built (the other towers
-    are built on the host and moved with the model); ``text_weights``: an HF
-    state dict for it, whose tensors it takes over (popped as they load), in
-    place of ``networks.text_encoder.weights_path`` (an HF snapshot
-    directory of ``*.safetensors`` for this tower)."""
+    ``device``: where a ``DeepseekV3TextEncoder`` or ``KimiLinearTextEncoder``
+    is built (the other towers are built on the host and moved with the
+    model); ``text_weights``: an HF state dict for it, whose tensors it takes
+    over (popped as they load), in place of
+    ``networks.text_encoder.weights_path`` (an HF snapshot directory of
+    ``*.safetensors`` for these towers)."""
 
     def __init__(self, config: Config, seed: int = 0, vocab_size: Optional[int] = None,
                  device=None, text_weights: Optional[Dict] = None):
@@ -119,8 +132,9 @@ class MMGCLIP(nn.Module):
         text_encoder_name = str(config.get_path("networks.text_encoder.name", "BertEncoder"))
         weights_path = str(config.get_path("networks.text_encoder.weights_path", "") or "")
         if text_encoder_name in MOE_TEXT_ENCODERS:
-            self.bert_config = _text_tower_config_from(config, vocab_size, DeepseekV3Config)
-            self.text_module = self._moe_tower(seed, device, text_weights, weights_path)
+            tower = MOE_TEXT_ENCODERS[text_encoder_name]
+            self.bert_config = _text_tower_config_from(config, vocab_size, tower[0])
+            self.text_module = self._moe_tower(tower, seed, device, text_weights, weights_path)
         else:
             tower = ((GPTConfig, CausalTextEncoder) if text_encoder_name in CAUSAL_TEXT_ENCODERS
                      else (BertConfig, BertEncoder))
@@ -170,22 +184,24 @@ class MMGCLIP(nn.Module):
             for name, trainable in resnet_finetune_mask(params).items():
                 params[name].requires_grad_(trainable)
 
-    def _moe_tower(self, seed: int, device, text_weights: Optional[Dict],
-                   weights_path: str) -> DeepseekV3TextEncoder:
-        """The DeepSeek-V3 tower on ``device``: drawn there from the seed, or
-        built on ``meta`` and loaded from ``text_weights`` / the snapshot at
-        ``weights_path``, so its weights never pass through the host."""
+    def _moe_tower(self, tower, seed: int, device, text_weights: Optional[Dict],
+                   weights_path: str) -> nn.Module:
+        """The DeepSeek-V3 or Kimi-Linear tower (``tower``: its
+        ``MOE_TEXT_ENCODERS`` entry) on ``device``: drawn there from the seed,
+        or built on ``meta`` and loaded from ``text_weights`` / the snapshot
+        at ``weights_path``, so its weights never pass through the host."""
+        module_cls = tower[1]
+        load, names = _hf_loader(module_cls)
         device = torch.device("cpu" if device is None else device)
         if text_weights is None and not weights_path:
-            return DeepseekV3TextEncoder(self.bert_config,
-                                         torch.Generator(device=device).manual_seed(seed),
-                                         device=device)
-        module = DeepseekV3TextEncoder(self.bert_config, device="meta")
+            return module_cls(self.bert_config, torch.Generator(device=device).manual_seed(seed),
+                              device=device)
+        module = module_cls(self.bert_config, device="meta")
         if text_weights is not None:
-            load_deepseek_v3_weights(module, text_weights, device=device)
+            load(module, text_weights, device=device)
         else:
-            read_snapshot(module, weights_path, device)
-            logger.info(f"Loaded the DeepSeek-V3 text tower from {weights_path}.")
+            read_snapshot(module, weights_path, device, load, names)
+            logger.info(f"Loaded the {module_cls.__name__} text tower from {weights_path}.")
         return module
 
     def trainable_parameters(self) -> Dict[str, nn.Parameter]:

@@ -249,16 +249,24 @@ class MLP(nn.Module):
 
 class MoE(nn.Module):
     """Sigmoid router with a selection bias, top-k routed SwiGLU experts
-    (``ops.moe_experts``) and the shared experts."""
+    (``ops.moe_experts``) and the shared experts.
 
-    def __init__(self, c: DeepseekV3Config, build: _Params):
+    ``held``: the routed experts this layer holds (expert parallelism: a
+    range of the router's ``n_routed_experts``; default all).  The router
+    keeps its full width and normalizes the weights over all k chosen
+    experts, held or not; the layer returns the held experts' weighted rows
+    and the shared experts, and computes nothing for the others.  The stacks
+    hold the held experts in order (row j is expert ``held[j]``)."""
+
+    def __init__(self, c: DeepseekV3Config, build: _Params, held: Optional[range] = None):
         super().__init__()
         self.c = c
         E, I, D = c.n_routed_experts, c.moe_intermediate_size, c.hidden_size
+        self.held = range(E) if held is None else held
         self.gate = build.weight(E, D)
         self.e_score_correction_bias = build.zeros_f32(E)
-        self.w_gate_up = build.weight(E, 2 * I, D)
-        self.w_down = build.weight(E, D, I)
+        self.w_gate_up = build.weight(len(self.held), 2 * I, D)
+        self.w_down = build.weight(len(self.held), D, I)
         self.shared_experts = (MLP(c.n_shared_experts * I, c, build) if c.n_shared_experts
                                else None)
 
@@ -280,7 +288,7 @@ class MoE(nn.Module):
         tracer = recorder()
         start = tracer.mark(h.device)
         experts, weights = self.route(x)
-        plan = dispatch(experts, self.c.n_routed_experts)
+        plan = dispatch(experts, self.c.n_routed_experts, self.held)
         routed = tracer.mark(h.device)
         y = moe_experts(x, plan, weights, self.w_gate_up, self.w_down)
         if self.shared_experts is not None:
@@ -290,9 +298,10 @@ class MoE(nn.Module):
         return y
 
 
-def _record_moe(tracer, layers) -> None:
+def _record_moe(tracer, layers, **attrs) -> None:
     """Record a forward's MoE layers (module docstring): ``layers``, each
-    one's (start, routed, end) marks and tokens per expert, or None."""
+    one's (start, routed, end) marks and tokens per expert, or None;
+    ``attrs`` go on the counter."""
     if not layers:
         return
     parent = tracer.current()
@@ -300,7 +309,7 @@ def _record_moe(tracer, layers) -> None:
     for i, (start, routed, end, _c) in enumerate(layers):
         tracer.interval("moe.route", start, routed, parent, layer=i)
         tracer.interval("moe.experts", routed, end, parent, layer=i)
-    tracer.interval("moe.tokens_per_expert", end, end, parent, counts=counts)
+    tracer.interval("moe.tokens_per_expert", end, end, parent, counts=counts, **attrs)
 
 
 class DecoderLayer(nn.Module):
@@ -458,9 +467,13 @@ def load_deepseek_v3_weights(module: DeepseekV3TextEncoder, state_dict: Dict[str
     return read
 
 
-def read_snapshot(module: DeepseekV3TextEncoder, path: str, device) -> None:
+def read_snapshot(module: nn.Module, path: str, device, load=None, names=None) -> None:
     """Load an HF snapshot (a directory of ``*.safetensors`` shards, or one
-    file) shard by shard onto ``device``: the host holds one shard at a time."""
+    file) shard by shard onto ``device``: the host holds one shard at a time.
+    ``load`` / ``names``: another tower's loader and ``hf_names`` (default
+    this module's)."""
+    load = load_deepseek_v3_weights if load is None else load
+    names = hf_names if names is None else names
     import glob
     import os
 
@@ -472,7 +485,7 @@ def read_snapshot(module: DeepseekV3TextEncoder, path: str, device) -> None:
         raise FileNotFoundError(f"no *.safetensors under {path}")
     read: List[str] = []
     for file in files:
-        read += load_deepseek_v3_weights(module, load_file(file), device=device, strict=False)
-    missing = sorted(set(hf_names(module.config)) - set(read))
+        read += load(module, load_file(file), device=device, strict=False)
+    missing = sorted(set(names(module.config)) - set(read))
     if missing:
         raise KeyError(f"{path}: {len(missing)} weights missing, e.g. {missing[:3]}")

@@ -14,6 +14,10 @@ j iff j <= i and ``keys[j]`` is set; no other mask is taken.  The output is
 the context ``[b, s, H v]`` in the inputs' dtype, laid out as ``o_proj``
 reads it.
 
+With ``cos`` and ``sin`` None the attention has no positions (NoPE, as
+Kimi-Linear's latent attention): ``q_pe`` and ``k_pe`` stay as projected and
+still take part in the scores, whose scale stays 1 / sqrt(nope + rope).
+
 ``plain_mla_attention`` is the arithmetic the tower ran in plain PyTorch:
 RoPE on adjacent pairs in float32 (``rope_pairs``), q and k widened to
 float32, scores q.k / sqrt(nope + rope) under the tower's ``[b, 1, s, s]``
@@ -83,8 +87,10 @@ def plain_mla_attention(q: torch.Tensor, k_pe: torch.Tensor, kv: torch.Tensor, c
     q = q.view(b, s, H, nope + rope)
     kv = kv.view(b, s, H, nope + vd)
     k_nope, v = kv.split([nope, vd], dim=-1)
-    q_pe = rope_pairs(q[..., nope:], cos, sin)
-    k_pe = rope_pairs(k_pe[:, :, None], cos, sin).expand(b, s, H, rope)
+    q_pe, k_pe = q[..., nope:], k_pe[:, :, None]
+    if cos is not None:
+        q_pe, k_pe = rope_pairs(q_pe, cos, sin), rope_pairs(k_pe, cos, sin)
+    k_pe = k_pe.expand(b, s, H, rope)
     query = torch.cat([q[..., :nope], q_pe], dim=-1).transpose(1, 2).float()
     key = torch.cat([k_nope, k_pe], dim=-1).transpose(1, 2).float()
     scores = torch.matmul(query, key.transpose(-1, -2)) * (1.0 / math.sqrt(nope + rope))
@@ -107,12 +113,15 @@ def _check_operand(name: str, t: torch.Tensor, device) -> None:
 
 def launch_mla_attention(q: torch.Tensor, k_pe: torch.Tensor, kv: torch.Tensor, cos: torch.Tensor,
                          sin: torch.Tensor, keys: torch.Tensor, heads: int, rotated: bool = False):
-    """Launch the kernel (CUDA tensors only; raises on any failure).  ``keys``
+    """Launch the kernel (CUDA tensors only; raises on any failure; ``cos``
+    and ``sin`` None: no rotation, the kernel's NoPE path).  ``keys``
     ``[b, s]``: bool or uint8 are read in place, other dtypes compared with 0
     first.  -> the context, or with ``rotated`` (context, rotated q_pe ``[b,
     s, H, rope]``, rotated k_pe ``[b, s, rope]`` of the keys the kernel
     loaded)."""
-    if not all(t.is_cuda for t in (q, k_pe, kv, cos, sin, keys)):
+    if (cos is None) != (sin is None):
+        raise ValueError("launch_mla_attention takes both rope tables or neither")
+    if not all(t.is_cuda for t in (q, k_pe, kv, keys) + ((cos, sin) if cos is not None else ())):
         raise ValueError("launch_mla_attention needs CUDA tensors")
     nope, rope, vd = _dims(q, k_pe, kv, heads)
     if (nope, rope, vd) not in KERNEL_DIMS:
@@ -124,7 +133,7 @@ def launch_mla_attention(q: torch.Tensor, k_pe: torch.Tensor, kv: torch.Tensor, 
     b, s, _ = q.shape
     if b > 65535 or heads > 65535:
         raise ValueError(f"launch_mla_attention: at most 65,535 rows and heads, got {b}, {heads}")
-    for name, t in (("cos", cos), ("sin", sin)):
+    for name, t in (("cos", cos), ("sin", sin)) if cos is not None else ():
         if (t.device != device or t.dtype != torch.float32 or not t.is_contiguous()
                 or tuple(t.shape) != (s, rope // 2) or t.data_ptr() % 16):
             raise ValueError(f"launch_mla_attention: {name} must be contiguous, 16-byte aligned "
@@ -144,7 +153,8 @@ def launch_mla_attention(q: torch.Tensor, k_pe: torch.Tensor, kv: torch.Tensor, 
     with torch.cuda.device(device):
         code = lib.mmg_mla_attention(
             q.data_ptr(), q.stride(0), q.stride(1), k_pe.data_ptr(), k_pe.stride(0), k_pe.stride(1),
-            kv.data_ptr(), kv.stride(0), kv.stride(1), cos.data_ptr(), sin.data_ptr(),
+            kv.data_ptr(), kv.stride(0), kv.stride(1), 0 if cos is None else cos.data_ptr(),
+            0 if sin is None else sin.data_ptr(),
             keys.data_ptr(), keys.stride(0), out.data_ptr(),
             0 if q_rot is None else q_rot.data_ptr(), 0 if k_rot is None else k_rot.data_ptr(),
             b, heads, s, nope, rope, vd, 1.0 / math.sqrt(nope + rope), stream)

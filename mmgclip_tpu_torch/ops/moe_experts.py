@@ -12,6 +12,13 @@ slot in a fixed order (so the result is deterministic), of
 arithmetic of both paths: float32 sums of bf16 operands, the SwiGLU rounded
 to bf16, each weighted row rounded to bf16, the k rows summed in float32.
 
+A layer that holds only some of the router's experts (expert parallelism:
+the experts ``held``, a range of the router's ``E``, whose weights are the
+stacks' rows in order) calls ``dispatch(experts, E, held)``: the rows routed
+to experts it does not hold are sorted past the held ones and no tile
+covers them, so their slots add nothing (their rows are zero) and nothing
+is computed for them; ``plan.counts`` then counts the held experts' rows.
+
 A CUDA tensor launches the kernel (launch count ``moe_experts``: one per
 call, which launches the gate|up and the down GEMM); a CPU tensor runs
 ``plain_moe_experts`` (one float32 matmul per expert).  No gradient: the
@@ -22,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch.nn import functional as F
@@ -43,18 +51,28 @@ class Plan:
     """Rows sorted by expert: ``order`` [R] (the flat (token, slot) index of
     each sorted row), ``tokens`` [R] int32 (its token), ``offsets`` [E + 1]
     int32, ``tile_offsets`` [E + 1] int32 (cumulative ``TILE_ROWS`` tiles),
-    ``counts`` [E] int64."""
+    ``counts`` [E] int64, over the ``E`` held experts; ``complete``: every
+    row belongs to one of them."""
     order: torch.Tensor
     tokens: torch.Tensor
     offsets: torch.Tensor
     tile_offsets: torch.Tensor
     counts: torch.Tensor
+    complete: bool = True
 
 
-def dispatch(experts: torch.Tensor, n_experts: int) -> Plan:
-    """``experts`` [T, k] int64 -> the ``Plan`` (no host read-back)."""
+def dispatch(experts: torch.Tensor, n_experts: int, held: Optional[range] = None) -> Plan:
+    """``experts`` [T, k] int64 of a router over ``n_experts`` -> the
+    ``Plan`` over the experts ``held`` (default: all; no host read-back)."""
     k = experts.shape[1]
     flat = experts.reshape(-1)
+    complete = held is None or (held.start == 0 and len(held) == n_experts)
+    if not complete:
+        if held.step != 1 or held.start < 0 or held.stop > n_experts or not len(held):
+            raise ValueError(f"dispatch: held experts {held} of {n_experts}")
+        flat = flat - held.start
+        flat = flat.masked_fill((flat < 0) | (flat >= len(held)), len(held))  # past the held
+        n_experts = len(held)
     order = torch.argsort(flat, stable=True)
     bounds = torch.arange(n_experts + 1, device=flat.device, dtype=flat.dtype)
     offsets = torch.searchsorted(flat[order], bounds)
@@ -62,7 +80,7 @@ def dispatch(experts: torch.Tensor, n_experts: int) -> Plan:
     tiles = torch.cumsum((counts + TILE_ROWS - 1) // TILE_ROWS, 0)
     tile_offsets = torch.cat([tiles.new_zeros(1), tiles])
     return Plan(order=order, tokens=(order // k).to(torch.int32), offsets=offsets.to(torch.int32),
-                tile_offsets=tile_offsets.to(torch.int32), counts=counts)
+                tile_offsets=tile_offsets.to(torch.int32), counts=counts, complete=complete)
 
 
 def _check(x, weights, w_gate_up, w_down) -> tuple:
@@ -118,7 +136,8 @@ def launch_moe_experts(x: torch.Tensor, plan: Plan, weights: torch.Tensor,
     max_tiles = -(-R // TILE_ROWS) + E
     x, w_gate_up, w_down = x.contiguous(), w_gate_up.contiguous(), w_down.contiguous()
     h = torch.empty(R, I, dtype=x.dtype, device=x.device)
-    rows = torch.empty(R, D, dtype=x.dtype, device=x.device)
+    # the slots of experts not held are never written: zero
+    rows = (torch.empty if plan.complete else torch.zeros)(R, D, dtype=x.dtype, device=x.device)
     row_weights = weights.reshape(-1).float()[plan.order].contiguous()
     dest = plan.order.to(torch.int32)
     lib = load_typed(_SOURCE, _SIGNATURES)

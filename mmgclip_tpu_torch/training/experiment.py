@@ -13,7 +13,7 @@ Rebuild of the reference train/validate/test life cycle
   records ``bank.encode`` (rows, width), a ``bank.chunk`` span per chunk
   (rows, valid_tokens, computed_tokens), its ``bank.device`` interval from
   CUDA events (a tower may record its own spans inside, under the chunk's:
-  ``models/deepseek_v3.py``);
+  ``models/deepseek_v3.py``, ``models/kimi_linear.py``);
 * the fused epoch keeps the feature and text banks on the device and runs
   every step there: the shuffled order is the JAX package's
   (``_epoch_order``, numpy ``default_rng((seed, epoch))``, wrap-around tail),
@@ -166,8 +166,8 @@ class ClassifierExperiment:
                  init_params: Optional[Dict] = None, text_weights: Optional[Dict] = None):
         """``init_params``: a JAX-layout trainable tree (nested numpy dicts) to
         start from instead of the seeded init, e.g. the JAX package's.
-        ``text_weights``: HF-named weights of a ``DeepseekV3TextEncoder``
-        tower (``MMGCLIP``), taken over as they load."""
+        ``text_weights``: HF-named weights of a ``DeepseekV3TextEncoder`` or
+        ``KimiLinearTextEncoder`` tower (``MMGCLIP``), taken over as they load."""
         if config is None:
             raise ValueError("Missing training config object.")
         self.config = config

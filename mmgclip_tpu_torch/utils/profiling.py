@@ -148,15 +148,15 @@ class Tracer:
             self._clocks[device] = DeviceClock(device)
         return self._clocks[device], self._clocks[device].mark()
 
-    def interval(self, name: str, begin, end, parent=None, **attrs) -> None:
+    def interval(self, name: str, begin, end, parent=None, **attrs) -> Optional[int]:
         """Wait for ``end`` and record the span from ``begin`` to it (``mark``s
-        of one device) on the device's thread; marks off the card record
-        nothing.  After a read-back that passed ``end``, the wait is free."""
+        of one device) on the device's thread; -> its id.  Marks off the card
+        record nothing.  After a read-back that passed ``end``, the wait is free."""
         if end is None:
-            return
+            return None
         end[1].synchronize()
-        self.add(name, begin[0].resolve(begin[1]), end[0].resolve(end[1]), parent,
-                 thread=str(end[0].device), **attrs)
+        return self.add(name, begin[0].resolve(begin[1]), end[0].resolve(end[1]), parent,
+                        thread=str(end[0].device), **attrs)
 
     def collecting(self) -> List:
         """A new list, to which this thread's ``collect`` calls append until

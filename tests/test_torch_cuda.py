@@ -42,7 +42,14 @@ images and a batch of 32 of the benchmark's full-field phantoms, and
 decode; the causal latent-attention kernel against its plain version within
 two bf16 steps of the largest output (both round P to bf16, at different
 points, after float32 sums taken in another order), its rotated operands
-bit-equal to ``rope_pairs``, a second launch bit-equal.
+bit-equal to ``rope_pairs``, a second launch bit-equal, and its NoPE path
+(no tables) within the same bounds; the KDA scan kernel against its chunked
+plain version within two bf16 steps of the largest output and 1e-2 relative
+L2 a row (both sum in float32 and round the output once), zeros past each
+row's length, a second launch bit-equal, and its planted-fault variants as
+the plain path computes them; the grouped expert kernel over a held range of
+128 of 256 experts; the tiny Kimi-Linear tower's bank through the kernels,
+with its spans.
 """
 
 import os
@@ -1539,3 +1546,188 @@ def test_the_bank_runs_its_attention_through_the_kernel(cuda_device, tmp_path, m
     plain = exp._pool_tokens(tokens)
     errors = (bank - plain).norm(dim=1) / plain.norm(dim=1)
     assert float(errors.median()) < 1.5e-2 and float((errors > 3e-2).float().mean()) <= 0.1
+
+
+# ----------------------------------------------------------------------
+# the KDA scan kernel (csrc/kda.cu), the NoPE latent attention and a held
+# range of the grouped expert kernel (the Kimi-Linear tower)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("rows,width,heads", [
+    (256, 512, 32),  # a chunk of the bank cell, lengths drawn as it draws them
+    (6, 130, 32),    # rows of 0, 1, 31, 32, 33 and 130 tokens
+    (6, 130, 2),     # the card tests' tiny tower
+])
+def test_kda_kernel_matches_plain(cuda_device, rows, width, heads):
+    """Every output element within two bf16 steps of the largest, each row
+    within ``KDA_ROW_L2_TOL`` relative L2, zeros past each row's length
+    (a row of no token included), one launch a call, a second launch
+    bit-equal."""
+    import chip_smoke
+    from mmgclip_tpu_torch.ops.kda import kda, launch_kda, plain_kda
+
+    if rows == 256:
+        lengths = chip_smoke.bank_lengths(rows, 7)
+    else:
+        lengths = np.array([0, 1, 31, 32, 33, width])
+    args = chip_smoke.kda_layer_inputs(cuda_device, lengths, width, heads=heads)
+    before = launch_counts()["kda"]
+    got = kda(*args)
+    assert launch_counts()["kda"] == before + 1
+    want = plain_kda(*args)
+    err, row_l2 = chip_smoke.kda_errors(got[lengths > 0], want[lengths > 0])
+    assert err <= BF16_REL_TOL and row_l2 <= chip_smoke.KDA_ROW_L2_TOL, (err, row_l2)
+    pad = torch.arange(width, device=cuda_device)[None, :] >= args[-1][:, None]
+    assert not got[pad].any() and bool(torch.isfinite(got).all())
+    assert torch.equal(launch_kda(*args), got)
+
+
+@pytest.mark.parametrize("variant", [{"reset_every": 64}, {"head_decay": True},
+                                     {"state_dtype": torch.bfloat16}])
+def test_kda_kernel_variants_match_plain(cuda_device, variant):
+    """The planted faults' variants on the card as on the CPU (a bf16 state
+    rounds at every token on both sides, so their paths part a little
+    further: 4 bf16 steps of the largest, 3e-2 a row), and each differs from
+    the sound scan."""
+    import chip_smoke
+    from mmgclip_tpu_torch.ops.kda import launch_kda, plain_kda
+
+    lengths = chip_smoke.bank_lengths(16, 9)
+    args = chip_smoke.kda_layer_inputs(cuda_device, lengths, 512)
+    got = launch_kda(*args, **variant)
+    want = plain_kda(*args, **variant)
+    err, row_l2 = chip_smoke.kda_errors(got, want)
+    loose = "state_dtype" in variant
+    assert err <= (4 if loose else 1) * BF16_REL_TOL, err
+    assert row_l2 <= (3e-2 if loose else chip_smoke.KDA_ROW_L2_TOL), row_l2
+    sound = launch_kda(*args)
+    assert float((got.float() - sound.float()).norm() / sound.float().norm()) > 1e-3
+
+
+@pytest.mark.parametrize("rows,width,heads", [(256, 512, 32), (5, 40, 32), (5, 40, 4)])
+def test_mla_attention_nope_path_matches_plain(cuda_device, rows, width, heads):
+    """Without rope tables the kernel leaves q_pe and k_pe unrotated, as the
+    plain path does: within two bf16 steps of the largest and
+    ``MLA_ROW_L2_TOL`` a row, at Kimi-Linear's 32 heads (a bank chunk and
+    awkward masks) and the tiny tower's dims; equal to the kernel given
+    tables of no turn."""
+    import chip_smoke
+
+    if rows == 256:
+        lengths = chip_smoke.bank_lengths(rows, 5)
+        masks = (np.arange(width)[None, :] < lengths[:, None]).astype(np.int32)
+    else:
+        masks = _awkward_masks(width)
+    d = dict(MLA_DIMS["moonlight" if heads == 32 else "tiny"], heads=heads)
+    q, k_pe, kv, cos, sin, keys = chip_smoke.mla_layer_inputs(cuda_device, masks, **d)
+    got = mla_attention(q, k_pe, kv, None, None, keys, heads)
+    want = plain_mla_attention(q, k_pe, kv, None, None, keys, heads)
+    err, row_l2 = chip_smoke.mla_errors(got, want)
+    assert err <= BF16_REL_TOL and row_l2 <= chip_smoke.MLA_ROW_L2_TOL, (err, row_l2)
+    still = launch_mla_attention(q, k_pe, kv, torch.ones_like(cos), torch.zeros_like(sin), keys,
+                                 heads)
+    assert torch.equal(got, still)
+
+
+def test_moe_experts_kernel_over_a_held_range(cuda_device):
+    """Experts 0-127 of a 256-expert top-8 router at Kimi-Linear's widths
+    (2304 -> 1024): the kernel over the held range against the plain version,
+    the slots of experts not held zero, and the held range's plan counting
+    only its own rows."""
+    tokens, D, I, E, k = 8192, 2304, 1024, 256, 8
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    x = torch.randn(tokens, D, generator=g, device=cuda_device).to(torch.bfloat16)
+    w_gate_up = (0.02 * torch.randn(E // 2, 2 * I, D, generator=g, device=cuda_device)
+                 ).to(torch.bfloat16)
+    w_down = (0.02 * torch.randn(E // 2, D, I, generator=g, device=cuda_device)).to(torch.bfloat16)
+    chosen = torch.topk(torch.randn(tokens, E, generator=g, device=cuda_device), k).indices
+    weights = torch.rand(tokens, k, generator=g, device=cuda_device) + 0.1
+    plan = dispatch(chosen, E, range(0, E // 2))
+    assert int(plan.counts.sum()) == int((chosen < E // 2).sum())
+    got = launch_moe_experts(x, plan, weights, w_gate_up, w_down)
+    want = plain_moe_experts(x, plan, weights, w_gate_up, w_down)
+    assert float((got - want).abs().max() / want.abs().max()) <= BF16_REL_TOL
+    none_held = (chosen >= E // 2).all(dim=1)
+    assert bool(none_held.any()) and not got[none_held].any()
+    assert torch.equal(launch_moe_experts(x, plan, weights, w_gate_up, w_down), got)
+
+
+def test_the_kimi_bank_runs_its_kernels_and_records_its_spans(cuda_device, tmp_path):
+    """The tiny Kimi-Linear tower's trainer on the card: ``_pool_tokens``
+    launches the KDA kernel once a KDA layer and chunk and the NoPE latent
+    attention once an MLA layer and chunk; its bank matches the bank of the
+    plain paths on the card (as the bf16 tower matches the reference on the
+    CPU); under a profiler each chunk records one ``kda.layer`` with one
+    ``kda.scan`` inside it a KDA layer, and the held experts' counts with
+    their range."""
+    from mmgclip_tpu_torch.cli import DEFAULT_CONFIG_DIR
+    from mmgclip_tpu_torch.config import compose
+    from mmgclip_tpu_torch.data.loader import DataLoader
+    from mmgclip_tpu_torch.models import kimi_linear
+    from mmgclip_tpu_torch.ops.kda import plain_kda
+    from mmgclip_tpu_torch.training.experiment import ClassifierExperiment
+    from mmgclip_tpu_torch.utils import profiling
+    from torch_kimi_linear import TINY_FIELDS, hf_weights, tiny_override
+
+    from mmgclip_tpu_torch.models.kimi_linear import KimiLinearConfig
+
+    card = dict(kda_num_heads=2, kda_head_dim=128)  # the kernel's head size
+    TINY = KimiLinearConfig(**dict(TINY_FIELDS, **card))
+
+    rng = np.random.default_rng(4)
+    n, s = 300, 40
+    lengths = rng.integers(1, s + 1, n)
+    mask = (np.arange(s)[None] < lengths[:, None]).astype(np.int32)
+    tokens = {"input_ids": rng.integers(0, TINY.vocab_size, (n, s)).astype(np.int32) * mask,
+              "attention_mask": mask}
+
+    class Rows:
+        _features = rng.normal(size=(48, 768)).astype(np.float32)
+        _tokens = {k: v[:48] for k, v in tokens.items()}
+
+        def __len__(self):
+            return 48
+
+    cfg = compose(DEFAULT_CONFIG_DIR, "train_binary_class_clf",
+                  ["networks=clip_convnext_kimi_linear_text", "projection=2xLinear512",
+                   tiny_override(**card), "dataloader.train.batch_size=8", "base.seed=0"],
+                  run_dir=str(tmp_path))
+    cfg.base.tensorboard_export_dir = str(tmp_path / "tb")
+    exp = ClassifierExperiment(config=cfg, train_dataloader=DataLoader(Rows(), batch_size=8,
+                                                                       drop_last=True),
+                               device=cuda_device, text_weights=hf_weights(TINY, seed=2,
+                                                                           bias_std=1.0))
+    before = launch_counts()
+    bank = exp._pool_tokens(tokens)
+    after = launch_counts()
+    kda_layers = len(TINY.kda_layers)
+    assert after["kda"] - before["kda"] == 2 * kda_layers
+    assert after["mla_attention"] - before["mla_attention"] == 2 * len(TINY.full_attn_layers)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kimi_linear, "kda_scan", plain_kda)
+        from mmgclip_tpu_torch.models import deepseek_v3
+        mp.setattr(deepseek_v3, "mla_attention", plain_mla_attention)
+        plain = exp._pool_tokens(tokens)
+    errors = (bank - plain).norm(dim=1) / plain.norm(dim=1)
+    assert float(errors.median()) < 1.5e-2 and float((errors > 3e-2).float().mean()) <= 0.1
+
+    profiling.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        exp._pool_tokens(tokens)
+    records = profiling.spans()
+    chunks = [r for r in records if r["name"] == "bank.chunk"]
+    assert len(chunks) == 2
+    for chunk in chunks:
+        inside = [r for r in records if r["parent"] == chunk["id"]]
+        layers = [r for r in inside if r["name"] == "kda.layer"]
+        assert [r["attrs"]["layer"] for r in layers] == list(range(kda_layers))
+        for layer in layers:
+            (scan,) = [r for r in records if r["parent"] == layer["id"]]
+            assert scan["name"] == "kda.scan"
+            assert layer["start_ns"] <= scan["start_ns"] <= scan["end_ns"] <= layer["end_ns"]
+        (counts,) = [r for r in inside if r["name"] == "moe.tokens_per_expert"]
+        assert counts["attrs"]["held"] == list(TINY.experts_held)
+        assert np.asarray(counts["attrs"]["counts"]).shape == (TINY.num_hidden_layers - 1, 8)
+    profiling.reset_spans()
+    exp._pool_tokens(tokens)  # no profiler: nothing recorded
+    assert profiling.spans() == []
