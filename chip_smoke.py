@@ -960,6 +960,83 @@ def phase_kda(device, rows=256, width=512, seed=2147483671):
     return times
 
 
+# the bank cells' RMSNorm calls a chunk of 256 x 512 rows: (name, rows, width, row stride,
+# gate, output dtype)
+RMS_NORM_SHAPES = (
+    ("hidden, Kimi-Linear", 131072, 2304, 2304, False, torch.bfloat16),
+    ("hidden, Moonlight", 131072, 2048, 2048, False, torch.bfloat16),
+    ("kv_a, split view", 131072, 512, 576, False, torch.bfloat16),
+    ("KDA output gate", 4194304, 128, 128, True, torch.bfloat16),
+    ("final, to float32", 131072, 2304, 2304, False, torch.float32),
+)
+RMS_NORM_FP32_REL_TOL = 1e-6  # float32 outputs, kernel vs plain, relative to the largest
+
+
+def rms_norm_inputs(device, rows, width, stride, gate, seed=5):
+    """Rows ``[rows, width]`` bf16 N(0, 4) at row stride ``stride`` (a view
+    of wider rows, as the split ``kv_a`` output), a weight 1 + N(0, 0.01),
+    and with ``gate`` a gate N(0, 9) -> (x, weight, gate or None)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape, scale=1.0, offset=0.0):
+        return (offset + scale * torch.randn(*shape, generator=g, device=device)).to(torch.bfloat16)
+
+    x = draw(rows, stride, scale=2.0)[:, :width]
+    return x, draw(width, scale=0.1, offset=1.0), draw(rows, width, scale=3.0) if gate else None
+
+
+def rms_norm_bound(rows, width, gate, out_dtype, peaks=PEAKS["H100 80GB HBM3"]) -> float:
+    """The least seconds of one call: its rows read (bf16), its gate read
+    (bf16) and its output written, at the HBM peak; the weight not counted."""
+    out = torch.finfo(out_dtype).bits // 8
+    return rows * width * (2 + (2 if gate else 0) + out) / peaks["bytes"]
+
+
+def rms_norm_errors(got: torch.Tensor, want: torch.Tensor) -> float:
+    """bf16 outputs: the largest |diff| in bf16 steps (ulps) of the larger of
+    the two values; float32 outputs: max |diff| / max |plain|."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return float(diff.max() / want.abs().max())
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp(min=2.0 ** -126))) - 7)
+    return float((diff / ulp).max())
+
+
+def phase_rms_norm(device, shapes=RMS_NORM_SHAPES):
+    """The RMSNorm kernel (``csrc/rms_norm.cu``) against its plain version at
+    the bank cells' calls: every bf16 element within one bf16 step of the
+    plain path's, float32 within ``RMS_NORM_FP32_REL_TOL`` of the largest, a
+    second launch bit-equal; then device ms a call beside its byte bound and
+    the plain version's.  -> {name: times}."""
+    from mmgclip_tpu_torch.ops.rms_norm import launch_rms_norm, plain_rms_norm
+
+    out = {}
+    for name, rows, width, stride, gate, dtype in shapes:
+        x, w, r = rms_norm_inputs(device, rows, width, stride, gate)
+        kernel = lambda: launch_rms_norm(x, w, 1e-5, dtype, r)  # noqa: E731
+        plain = lambda: plain_rms_norm(x, w, 1e-5, dtype, r)  # noqa: E731
+        got = kernel()
+        err = rms_norm_errors(got, plain())
+        ok = err <= (RMS_NORM_FP32_REL_TOL if dtype == torch.float32 else 1.0)
+        same = torch.equal(kernel(), got)
+        del got
+        kernel_ms = device_ms(kernel, calls=10)
+        plain_ms = device_ms(plain, calls=3, repeats=3)
+        bound_ms = rms_norm_bound(rows, width, gate, dtype) * 1e3
+        out[name] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "err": err}
+        unit = "of the largest" if dtype == torch.float32 else "bf16 steps"
+        log(f"    {name} [{rows:,}, {width}] (stride {stride}{', gated' if gate else ''}, "
+            f"{str(dtype)[6:]} out): worst {err:.3g} {unit}, second launch "
+            f"{'bit-equal' if same else 'DIFFERS'}; kernel {kernel_ms:.4f} ms (bound "
+            f"{bound_ms:.4f} ms: {100 * bound_ms / kernel_ms:.1f}%), plain {plain_ms:.4f} ms")
+        if not (ok and same):
+            raise AssertionError(f"rms_norm {name}: {err:.3g} {unit}, second launch same: {same}")
+        del x, w, r
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_dropout_parity(device):
     """``mmg_dropout`` and ``mmg_threefry2x32`` against the plain version on
     the CPU (``utils/prng.py``): masks, outputs and gradients bit-equal at
@@ -4225,6 +4302,10 @@ def main() -> int:
     # 5f. the port-only KDA scan kernel ---------------------------------------
     log("[5f] kda vs its plain version at a Kimi-Linear-48B-A3B bank chunk, then its times")
     phase_kda(device)
+
+    # 5g. the port-only RMSNorm kernel ------------------------------------------
+    log("[5g] rms_norm vs its plain version at the bank cells' norm calls, then its times")
+    phase_rms_norm(device)
 
     # 6. the serving path ---------------------------------------------------------
     log("[6] serving path: ConvNeXt-Tiny (fused blocks, bf16) + BERT-base (flash), seeded weights")

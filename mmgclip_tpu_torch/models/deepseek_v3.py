@@ -25,8 +25,11 @@ The layer equations (HF ``modeling_deepseek.py`` with ``q_lora_rank`` None,
 Departures: no ``lm_head`` and no multi-token-prediction layers (a text
 tower uses neither).  Precision: bfloat16 weights and activations with
 float32 accumulation; RMSNorm statistics, RoPE, the scores and the router in
-float32.  The routed experts go through ``ops/moe_experts.py`` (the grouped
-CUDA kernel on the card, its plain version on the CPU); the attention after
+float32.  Every RMSNorm goes through ``ops/rms_norm.py`` (on the card one
+pass over each bf16 row, ``kv_a_layernorm`` reading the split ``c_kv`` view
+in place; on the CPU its plain version).  The routed experts go through
+``ops/moe_experts.py`` (the grouped CUDA kernel on the card, its plain
+version on the CPU); the attention after
 its projections (RoPE, scores under the causal and padding masks, softmax,
 P v) through ``ops/mla_attention.py`` (on the card a causal latent-attention
 kernel that reads the projections in place and rotates ``q_pe`` and the
@@ -63,6 +66,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops import rms_norm as norms
 from ..ops.mla_attention import mla_attention
 from ..ops.moe_experts import dispatch, moe_experts
 from ..utils.profiling import recorder
@@ -155,13 +159,6 @@ def parameter_shapes(config: DeepseekV3Config) -> Dict[str, tuple]:
     return out
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, dtype=None) -> torch.Tensor:
-    """RMSNorm with float32 statistics, rounded once to ``dtype`` (x's by default)."""
-    xf = x.float()
-    out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * weight.float()
-    return out.to(x.dtype if dtype is None else dtype)
-
-
 def rope_tables(positions: int, dim: int, theta: float, device) -> tuple:
     """cos, sin ``[positions, dim // 2]`` in float32: pair i turns at theta^(-2i / dim)."""
     inv = theta ** (-torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim)
@@ -205,8 +202,8 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.weight = build.ones(width)
 
-    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
-        return rms_norm(x, self.weight, self.eps, dtype)
+    def forward(self, x: torch.Tensor, dtype=None, gate: Optional[torch.Tensor] = None):
+        return norms.rms_norm(x, self.weight, self.eps, dtype, gate)
 
 
 class Attention(nn.Module):

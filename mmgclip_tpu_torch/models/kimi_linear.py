@@ -39,10 +39,12 @@ weights and activations with float32 accumulation; RMSNorm statistics, the
 router, the KDA scan and its gates in float32; ``A_log`` and ``dt_bias``
 float32 parameters, as the published model keeps them.  The KDA scan goes
 through ``ops/kda.py`` (on the card a kernel fusing the convolutions, norms,
-gates and the recurrence; on the CPU its chunked plain version), the
-attention through ``ops/mla_attention.py`` (its NoPE path), the routed
-experts through ``ops/moe_experts.py`` over the held range; projections are
-plain ``torch`` (cuBLAS).  Padding is right padding: the scan is causal, so
+gates and the recurrence; on the CPU its chunked plain version), the norms
+and the output gate through ``ops/rms_norm.py`` (on the card one pass over
+each row, the gate its epilogue, with no float32 copy), the attention
+through ``ops/mla_attention.py`` (its NoPE path), the routed experts through
+``ops/moe_experts.py`` over the held range; projections are plain ``torch``
+(cuBLAS).  Padding is right padding: the scan is causal, so
 it takes each row's valid length and needs no mask.
 
 Parameters use HF's ``[out, in]`` layout and Kimi's published module names
@@ -75,7 +77,7 @@ from torch.nn import functional as F
 from ..ops.kda import kda
 from ..utils.profiling import recorder
 from .deepseek_v3 import (MLP, Attention, DeepseekV3Config, MoE, RMSNorm, _assign, _hf, _param,
-                          _Params, _record_moe, rms_norm)
+                          _Params, _record_moe)
 
 # keys of the published config.json that this tower takes only at one value
 FIXED_KEYS = {"q_lora_rank": None, "mla_use_nope": True, "moe_router_activation_func": "sigmoid",
@@ -246,9 +248,9 @@ class KimiDeltaAttention(nn.Module):
                      self.v_conv1d.view(H * d, 4), self.A_log, self.dt_bias, lengths)
         tracer.collect(("kda.scan", start, tracer.mark(h.device)))
         del q, k, v, f, beta
-        gate = torch.sigmoid(self.g_b_proj(F.linear(h, self.g_a_proj)).float())
-        y = self.o_norm(o.view(b, s, H, d), torch.float32) * gate.view(b, s, H, d)
-        return F.linear(y.to(h.dtype).view(b, s, H * d), self.o_proj)
+        r = self.g_b_proj(F.linear(h, self.g_a_proj))
+        y = self.o_norm(o.view(b * s * H, d), gate=r.view(b * s * H, d))
+        return F.linear(y.view(b, s, H * d), self.o_proj)
 
 
 kda_scan = kda  # the layer calls the scan through this module's name

@@ -14,7 +14,7 @@ _LAUNCHES: Dict[str, int] = {
     "fused_convnext_block": 0, "flash_attention": 0, "fused_convnext_block_int8": 0,
     "fused_stem": 0, "fused_ln_downsample": 0, "depthwise_conv7x7": 0, "ring_all_gather": 0,
     "threefry2x32": 0, "dropout": 0, "png_unfilter": 0, "moe_experts": 0, "mla_attention": 0,
-    "kda": 0,
+    "kda": 0, "rms_norm": 0,
 }
 
 

@@ -32,7 +32,7 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("fused_block.cu", "flash_attention.cu", "fused_stem.cu", "fused_downsample.cu",
            "depthwise_conv.cu", "ring_all_gather.cu", "threefry_dropout.cu", "png_unfilter.cu",
-           "moe_experts.cu", "mla_attention.cu", "kda.cu")
+           "moe_experts.cu", "mla_attention.cu", "kda.cu", "rms_norm.cu")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,11 +18,11 @@ import block_sweep
 import stem_sweep
 from mmgclip_tpu_torch.ops import _build, depthwise_conv, dropout, flash_attention, fused_block
 from mmgclip_tpu_torch.ops import fused_downsample, fused_stem, kda, mla_attention, moe_experts
-from mmgclip_tpu_torch.ops import png_unfilter
+from mmgclip_tpu_torch.ops import png_unfilter, rms_norm
 from mmgclip_tpu_torch.parallel import collectives
 
 MODULES = (fused_block, flash_attention, fused_stem, fused_downsample, depthwise_conv, collectives,
-           dropout, png_unfilter, moe_experts, mla_attention, kda)
+           dropout, png_unfilter, moe_experts, mla_attention, kda, rms_norm)
 _PROTOTYPE = re.compile(r"^int\s+(mmg_\w+)\s*\(([^)]*)\)\s*\{", re.MULTILINE)
 _C_KINDS = {"int": "int", "long long": "long long", "unsigned": "unsigned",
             "unsigned int": "unsigned", "float": "float"}

@@ -49,7 +49,10 @@ L2 a row (both sum in float32 and round the output once), zeros past each
 row's length, a second launch bit-equal, and its planted-fault variants as
 the plain path computes them; the grouped expert kernel over a held range of
 128 of 256 experts; the tiny Kimi-Linear tower's bank through the kernels,
-with its spans.
+with its spans; the RMSNorm kernel against its plain version, every bf16
+element within one bf16 step and float32 outputs within 1e-6 of the
+largest, gated, strided and ragged, a second launch bit-equal, and the
+towers launching it once a norm.
 """
 
 import os
@@ -95,6 +98,7 @@ from mmgclip_tpu_torch.ops.mla_attention import (
 )
 from mmgclip_tpu_torch.ops.moe_experts import dispatch, launch_moe_experts, plain_moe_experts
 from mmgclip_tpu_torch.ops.png_unfilter import launch_png_unfilter, png_unfilter
+from mmgclip_tpu_torch.ops.rms_norm import launch_rms_norm, plain_rms_norm, rms_norm
 from mmgclip_tpu_torch.parallel import (
     check_ring,
     global_clip_loss,
@@ -512,6 +516,8 @@ def _cpu_calls():
             torch.zeros(4, 16, dtype=torch.bfloat16), dispatch(torch.zeros(4, 2, dtype=torch.long), 2),
             torch.ones(4, 2), torch.zeros(2, 16, 16, dtype=torch.bfloat16),
             torch.zeros(2, 16, 8, dtype=torch.bfloat16)),
+        "rms_norm": lambda: launch_rms_norm(torch.zeros(4, 16, dtype=torch.bfloat16),
+                                            torch.ones(16, dtype=torch.bfloat16), 1e-5),
     }
 
 
@@ -1539,9 +1545,12 @@ def test_the_bank_runs_its_attention_through_the_kernel(cuda_device, tmp_path, m
 
     exp, loader = _moe_trainer(cuda_device, tmp_path)
     tokens = {k: np.concatenate([v] * 6) for k, v in loader(1).dataset._tokens.items()}  # 288 rows
-    before = launch_counts()["mla_attention"]
+    before = launch_counts()
     bank = exp._pool_tokens(tokens)
-    assert launch_counts()["mla_attention"] - before == TINY.num_hidden_layers * 2
+    after = launch_counts()
+    assert after["mla_attention"] - before["mla_attention"] == TINY.num_hidden_layers * 2
+    # two norms and kv_a's a layer, and the final, in each of the two chunks
+    assert after["rms_norm"] - before["rms_norm"] == (3 * TINY.num_hidden_layers + 1) * 2
     monkeypatch.setattr(deepseek_v3, "mla_attention", plain_mla_attention)
     plain = exp._pool_tokens(tokens)
     errors = (bank - plain).norm(dim=1) / plain.norm(dim=1)
@@ -1702,6 +1711,9 @@ def test_the_kimi_bank_runs_its_kernels_and_records_its_spans(cuda_device, tmp_p
     kda_layers = len(TINY.kda_layers)
     assert after["kda"] - before["kda"] == 2 * kda_layers
     assert after["mla_attention"] - before["mla_attention"] == 2 * len(TINY.full_attn_layers)
+    # a chunk: two norms a layer, kv_a's in each MLA layer, the gate in each KDA layer, the final
+    norms = 2 * TINY.num_hidden_layers + len(TINY.full_attn_layers) + kda_layers + 1
+    assert after["rms_norm"] - before["rms_norm"] == 2 * norms
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(kimi_linear, "kda_scan", plain_kda)
         from mmgclip_tpu_torch.models import deepseek_v3
@@ -1731,3 +1743,114 @@ def test_the_kimi_bank_runs_its_kernels_and_records_its_spans(cuda_device, tmp_p
     profiling.reset_spans()
     exp._pool_tokens(tokens)  # no profiler: nothing recorded
     assert profiling.spans() == []
+
+
+# ----------------------------------------------------------------------
+# the RMSNorm kernel (csrc/rms_norm.cu)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("rows,width,stride,gate,dtype", [
+    (1001, 128, 128, True, torch.bfloat16),    # the KDA output gate's per-head rows
+    (777, 512, 576, False, torch.bfloat16),    # kv_a_layernorm over the split view
+    (333, 2048, 2048, False, torch.bfloat16),  # Moonlight's hidden rows
+    (517, 2304, 2304, False, torch.bfloat16),  # Kimi-Linear's hidden rows
+    (517, 2304, 2304, False, torch.float32),   # the final norm
+    (1, 2304, 2304, True, torch.float32),
+    (9, 16, 24, False, torch.bfloat16),        # the tiny towers' c_kv view
+    (37, 64, 64, False, torch.float32),        # the tiny towers' final norm
+    (13, 1000, 1000, False, torch.bfloat16),   # a width between the classes
+])
+def test_rms_norm_kernel_matches_plain(cuda_device, rows, width, stride, gate, dtype):
+    """Every bf16 element within one bf16 step of the plain path's on the
+    card (float32 outputs within 1e-6 of the largest), one launch a call,
+    a second launch bit-equal, the strided input read in place."""
+    import chip_smoke
+
+    x, w, r = chip_smoke.rms_norm_inputs(cuda_device, rows, width, stride, gate, seed=rows)
+    before = launch_counts()["rms_norm"]
+    got = rms_norm(x, w, 1e-5, dtype, r)
+    assert launch_counts()["rms_norm"] == before + 1
+    assert got.shape == x.shape and got.dtype == dtype and got.is_contiguous()
+    err = chip_smoke.rms_norm_errors(got, plain_rms_norm(x, w, 1e-5, dtype, r))
+    assert err <= (chip_smoke.RMS_NORM_FP32_REL_TOL if dtype == torch.float32 else 1.0), err
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(launch_rms_norm(x, w, 1e-5, dtype, r), got)
+
+
+def test_rms_norm_rows_depend_on_themselves_alone(cuda_device):
+    """A row's output is the same alone as among others (no row reads
+    another), and rows of zeros come out zero."""
+    import chip_smoke
+
+    x, w, _r = chip_smoke.rms_norm_inputs(cuda_device, 300, 2304, 2304, False)
+    x = x.clone()
+    x[7] = 0
+    whole = launch_rms_norm(x, w, 1e-5)
+    assert not whole[7].any()
+    for row in (0, 7, 150, 299):
+        assert torch.equal(launch_rms_norm(x[row:row + 1], w, 1e-5), whole[row:row + 1])
+
+
+def test_rms_norm_refuses_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros(4, 64, dtype=torch.bfloat16, device=cuda_device)
+    w = torch.ones(64, dtype=torch.bfloat16, device=cuda_device)
+    before = launch_counts()["rms_norm"]
+    with pytest.raises(ValueError, match="bf16"):
+        launch_rms_norm(x.float(), w, 1e-5)
+    with pytest.raises(ValueError, match="writes bf16 or float32"):
+        launch_rms_norm(x, w, 1e-5, torch.float16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        launch_rms_norm(x[:, :60], w[:60], 1e-5)
+    with pytest.raises(ValueError, match="weight"):
+        launch_rms_norm(x, w.float(), 1e-5)
+    with pytest.raises(ValueError, match="row stride"):
+        launch_rms_norm(torch.zeros(4, 68, dtype=torch.bfloat16, device=cuda_device)[:, :64], w,
+                        1e-5)
+    with pytest.raises(ValueError, match="rows of one stride"):
+        launch_rms_norm(torch.zeros(4, 4, 64, dtype=torch.bfloat16,
+                                    device=cuda_device).transpose(0, 1), w, 1e-5)
+    with pytest.raises(ValueError, match="gate"):
+        launch_rms_norm(x, w, 1e-5, gate=x[:2])
+    assert launch_counts()["rms_norm"] == before
+
+
+@pytest.mark.parametrize("tower", ["moonlight", "kimi"])
+def test_a_tower_forward_launches_a_norm_per_rmsnorm(cuda_device, tower):
+    """A tiny tower's forward on the card launches the kernel once for each
+    RMSNorm it runs (Moonlight: input, post-attention and kv_a norms a
+    layer and the final; Kimi: kv_a only in its MLA layers, the gated o_norm
+    in its KDA layers) and matches its forward on the CPU as the bf16 tower
+    matches the reference (relative L2 a token, median under 1.5e-2)."""
+    if tower == "moonlight":
+        from mmgclip_tpu_torch.models.deepseek_v3 import (DeepseekV3TextEncoder as Tower,
+                                                          load_deepseek_v3_weights as load)
+        from torch_deepseek_v3 import TINY as c
+
+        norms = 3 * c.num_hidden_layers + 1
+        from test_torch_deepseek_v3 import hf_weights
+
+        weights = hf_weights(c, seed=1)
+    else:
+        from mmgclip_tpu_torch.models.kimi_linear import KimiLinearConfig
+        from mmgclip_tpu_torch.models.kimi_linear import KimiLinearTextEncoder as Tower
+        from mmgclip_tpu_torch.models.kimi_linear import load_kimi_linear_weights as load
+        from torch_kimi_linear import TINY_FIELDS, hf_weights
+
+        c = KimiLinearConfig(**dict(TINY_FIELDS, kda_num_heads=2, kda_head_dim=128))
+        norms = 2 * c.num_hidden_layers + len(c.full_attn_layers) + len(c.kda_layers) + 1
+        weights = hf_weights(c, seed=1, bias_std=1.0)
+    cpu = Tower(c, device="meta")
+    load(cpu, {k: v.clone() for k, v in weights.items()})
+    card = Tower(c, device="meta")
+    load(card, weights, device=cuda_device)
+    g = torch.Generator().manual_seed(2)
+    lengths = torch.tensor([24, 17, 5, 1])
+    mask = (torch.arange(24)[None] < lengths[:, None]).to(torch.int32)
+    ids = torch.randint(0, c.vocab_size, (4, 24), generator=g) * mask
+    before = launch_counts()["rms_norm"]
+    with torch.no_grad():
+        got = card(ids.to(cuda_device), attention_mask=mask.to(cuda_device))
+        assert launch_counts()["rms_norm"] - before == norms
+        want = cpu(ids, attention_mask=mask)
+    valid = mask > 0
+    errors = (got.cpu() - want)[valid].norm(dim=1) / want[valid].norm(dim=1)
+    assert float(errors.median()) < 1.5e-2

@@ -1,7 +1,8 @@
 """The DeepSeek-V3 text tower (``models/deepseek_v3.py``), the plain paths of
-its routed experts (``ops/moe_experts.py``) and of its attention
-(``ops/mla_attention.py``, bit-equal to the arithmetic the layer ran
-inline), and the trainer's bank over it,
+its routed experts (``ops/moe_experts.py``), of its attention
+(``ops/mla_attention.py``) and of its norms (``ops/rms_norm.py``), the last
+two bit-equal to the arithmetic the layer ran inline, and the trainer's bank
+over it,
 held against the plain reference ``tests/reference_deepseek_v3.py`` at a
 tiny size on the CPU (hidden 64, 1 dense + 2 MoE layers, 8 experts, top-2,
 1 shared expert, latent 16, rope 8).  Weights are drawn at 1 / sqrt(fan in)
@@ -35,6 +36,7 @@ from mmgclip_tpu_torch.ops import launch_counts
 from mmgclip_tpu_torch.ops.flash_attention import NEG_INF
 from mmgclip_tpu_torch.ops.mla_attention import mla_attention, plain_mla_attention, rope_pairs
 from mmgclip_tpu_torch.ops.moe_experts import dispatch, plain_moe_experts
+from mmgclip_tpu_torch.ops.rms_norm import plain_rms_norm, rms_norm
 from torch_deepseek_v3 import TINY, hf_state_dict
 
 FP32 = dataclasses.replace(TINY, dtype=torch.float32)
@@ -221,6 +223,56 @@ def test_plain_mla_attention_is_the_inline_arithmetic(masks, dtype):
     assert torch.equal(mla_attention(q, k_pe, kv, cos, sin, keys, H), want)
     assert launch_counts()["mla_attention"] == before
     assert torch.isfinite(want).all()
+
+
+def _inline_rms_norm(x, weight, eps, dtype=None):
+    """The tower's RMSNorm as it ran inline before ``ops/rms_norm.py``."""
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * weight.float()
+    return out.to(x.dtype if dtype is None else dtype)
+
+
+NORM_CASES = {  # name -> (dtype of the rows, their width, row stride, output dtype)
+    "hidden_bf16": (torch.bfloat16, 64, 64, None),
+    "hidden_fp32": (torch.float32, 64, 64, None),
+    "c_kv_view": (torch.bfloat16, 16, 24, None),  # the split kv_a output, latent 16 + rope 8
+    "final_to_fp32": (torch.bfloat16, 64, 64, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NORM_CASES))
+def test_plain_rms_norm_is_the_inline_arithmetic(case):
+    """``plain_rms_norm`` bit-equal to the arithmetic the tower ran inline: a
+    hidden row in bf16 and in float32, the strided ``c_kv`` view of the
+    ``kv_a`` output, the final norm into float32; ``rms_norm`` takes it for
+    CPU tensors and launches nothing."""
+    dtype, width, stride, out = NORM_CASES[case]
+    g = torch.Generator().manual_seed(width + stride)
+    x = (3 * torch.randn(3, 7, stride, generator=g)).to(dtype)[..., :width]
+    weight = (1 + 0.1 * torch.randn(width, generator=g)).to(dtype)
+    want = _inline_rms_norm(x, weight, 1e-5, out)
+    assert want.dtype == (dtype if out is None else out)
+    assert torch.equal(plain_rms_norm(x, weight, 1e-5, out), want)
+    before = launch_counts()["rms_norm"]
+    assert torch.equal(rms_norm(x, weight, 1e-5, out), want)
+    assert launch_counts()["rms_norm"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_tower_is_unchanged_by_its_norm_op(dtype, monkeypatch):
+    """The tower's CPU output bit-equal to its output with every RMSNorm
+    computed inline, as before ``ops/rms_norm.py``."""
+    from mmgclip_tpu_torch.models import deepseek_v3
+
+    module, _weights = tower(dataclasses.replace(TINY, dtype=dtype))
+    ids, mask = ragged()
+    with torch.no_grad():
+        got = module(ids, attention_mask=mask)
+        monkeypatch.setattr(deepseek_v3.RMSNorm, "forward",
+                            lambda self, x, dtype=None: _inline_rms_norm(x, self.weight,
+                                                                         self.eps, dtype))
+        want = module(ids, attention_mask=mask)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("tokens,k,experts,dtype", [(50, 2, 8, torch.bfloat16),

@@ -25,6 +25,7 @@ from mmgclip_tpu_torch.ops import launch_counts
 from mmgclip_tpu_torch.ops.kda import CHUNK, kda, plain_kda, prepare, recurrent_kda
 from mmgclip_tpu_torch.ops.mla_attention import mla_attention
 from mmgclip_tpu_torch.ops.moe_experts import dispatch
+from mmgclip_tpu_torch.ops.rms_norm import plain_rms_norm, rms_norm
 from torch_kimi_linear import TINY, TINY_FIELDS, cfg_dict, hf_state_dict, hf_weights, tiny_override
 
 FP32 = dataclasses.replace(TINY, dtype=torch.float32)
@@ -72,6 +73,66 @@ def test_forward_matches_reference_under_ragged_padding(dtype):
     else:
         errors = (got - want)[valid].norm(dim=1) / want[valid].norm(dim=1)
         assert float(errors.median()) < 1.5e-2 and float((errors > 3e-2).float().mean()) <= 0.1
+
+
+def _inline_norm(x, weight, eps, dtype=None):
+    xf = x.float()
+    out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * weight.float()
+    return out.to(x.dtype if dtype is None else dtype)
+
+
+def _inline_gate(o, r, weight, eps, b, s, H, d):
+    """The KDA layer's output gate as it ran inline before ``ops/rms_norm.py``:
+    the gate widened and activated in float32, the per-head norm into float32,
+    their product rounded to the tower's dtype."""
+    gate = torch.sigmoid(r.float())
+    y = _inline_norm(o.view(b, s, H, d), weight, eps, torch.float32) * gate.view(b, s, H, d)
+    return y.to(o.dtype).view(b, s, H * d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_gated_norm_is_the_inline_gate(dtype):
+    """``plain_rms_norm(..., gate=)`` over the per-head rows ``[b s H, d]``
+    bit-equal to the gate the layer computed inline; ``rms_norm`` takes it
+    for CPU tensors and launches nothing."""
+    b, s, H, d = 3, 5, TINY.kda_num_heads, TINY.kda_head_dim
+    g = torch.Generator().manual_seed(11)
+    o = (2 * torch.randn(b, s, H * d, generator=g)).to(dtype)
+    r = (3 * torch.randn(b, s, H * d, generator=g)).to(dtype)
+    weight = (1 + 0.1 * torch.randn(d, generator=g)).to(dtype)
+    want = _inline_gate(o, r, weight, 1e-5, b, s, H, d)
+    got = plain_rms_norm(o.view(b * s * H, d), weight, 1e-5, gate=r.view(b * s * H, d))
+    assert got.dtype == dtype and torch.equal(got.view(b, s, H * d), want)
+    before = launch_counts()["rms_norm"]
+    again = rms_norm(o.view(b * s * H, d), weight, 1e-5, gate=r.view(b * s * H, d))
+    assert torch.equal(again.view(b, s, H * d), want)
+    assert launch_counts()["rms_norm"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_tower_is_unchanged_by_its_norm_op(dtype, monkeypatch):
+    """The tower's CPU output bit-equal to its output with every norm and
+    the output gate computed inline, as before ``ops/rms_norm.py``."""
+    from mmgclip_tpu_torch.models import deepseek_v3, kimi_linear
+
+    module, _weights = tower(dataclasses.replace(TINY, dtype=dtype), bias_std=1.0)
+    ids, mask = ragged()
+    with torch.no_grad():
+        got = module(ids, attention_mask=mask)
+
+        def inline_norm(self, x, dtype=None, gate=None):
+            if gate is None:
+                return _inline_norm(x, self.weight, self.eps, dtype)
+            rows, d = x.shape
+            b, s = ids.shape
+            H = rows // (b * s)
+            return _inline_gate(x.view(b, s, H * d), gate.view(b, s, H * d), self.weight,
+                                self.eps, b, s, H, d).view(rows, d)
+
+        monkeypatch.setattr(deepseek_v3.RMSNorm, "forward", inline_norm)
+        assert kimi_linear.RMSNorm is deepseek_v3.RMSNorm
+        want = module(ids, attention_mask=mask)
+    assert torch.equal(got, want)
 
 
 def _scan_inputs(b, s, heads, d, seed, a_log=None):
